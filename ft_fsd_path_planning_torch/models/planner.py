@@ -1,0 +1,141 @@
+"""Planner step — the composition of all stages, batched over frames.
+
+Counterpart of `ft_fsd_path_planning_tpu/models/planner.py` (reference
+`full_pipeline/full_pipeline.py:84-207`), trackdrive/autocross branch:
+sort -> match -> path calculation. Every tensor carries a leading batch axis
+of independent frames, so one call is the JAX package's vmapped step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ft_fsd_path_planning_torch.config import PlannerConfig
+from ft_fsd_path_planning_torch.device import resolve_device
+from ft_fsd_path_planning_torch.models import matching, pathing, relocalization, sorting
+from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
+
+Tensor = torch.Tensor
+
+GLOBAL_PATH_BUFFER_LEN = 3072
+
+
+class PlannerState(NamedTuple):
+    path: pathing.PathState
+    reloc: relocalization.RelocState
+    global_path: pathing.GlobalPathBuffer  # user-set path (set_global_path)
+
+
+class FrameInput(NamedTuple):
+    cones: Tensor  # (B, N, 3) [x, y, color], color -1 on padding
+    mask: Tensor  # (B, N)
+    position: Tensor  # (B, 2)
+    direction: Tensor  # (B, 2)
+
+
+class StepOutput(NamedTuple):
+    path: Tensor  # (B, H, 4)
+    path_ok: Tensor  # (B,) False = fell back to the previous path
+    path_too_far: Tensor  # (B,) overwrite-if-too-far guard fired
+    relocalized: Tensor  # (B,) always False for trackdrive/autocross
+    spline_budget_hit: Tensor  # (B,) a FITPACK fit hit its knot budget
+    sorted_left: Tensor  # (B, L, 2)
+    sorted_left_mask: Tensor
+    sorted_right: Tensor
+    sorted_right_mask: Tensor
+    left_with_virtual: Tensor  # (B, S, 2)
+    left_mask: Tensor
+    right_with_virtual: Tensor
+    right_mask: Tensor
+    left_to_right: Tensor  # (B, S)
+    right_to_left: Tensor
+
+
+def make_initial_state(
+    cfg: PlannerConfig, batch: int = 1, device: str | torch.device | None = None
+) -> PlannerState:
+    """Initial planner state for ``batch`` frames on ``device`` (default
+    ``cuda``; raises without a GPU unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    return PlannerState(
+        path=pathing.initial_path_state(cfg, batch, dev),
+        reloc=relocalization.RelocState.initial(batch, dev),
+        global_path=pathing.GlobalPathBuffer.empty(batch, GLOBAL_PATH_BUFFER_LEN, dev),
+    )
+
+
+def _pad_side(pts: Tensor, m: Tensor, s_len: int) -> tuple[Tensor, Tensor]:
+    out = torch.zeros((pts.shape[0], s_len, 2), dtype=pts.dtype, device=pts.device)
+    out_m = torch.zeros((m.shape[0], s_len), dtype=torch.bool, device=m.device)
+    out[:, : pts.shape[1]] = pts
+    out_m[:, : m.shape[1]] = m
+    return out, out_m
+
+
+def planner_step(
+    cfg: PlannerConfig, state: PlannerState, frame: FrameInput
+) -> tuple[StepOutput, PlannerState]:
+    """One planner step for a batch of frames: (B, ...) state x (B, ...)
+    frames -> (outputs, new state)."""
+    if cfg.has_relocalizer:
+        raise NotImplementedError(
+            "relocalizer missions (skidpad, acceleration) are not ported yet "
+            "(ROADMAP.md, Queue A10)"
+        )
+    s_len = cfg.shapes.side_len
+    position, direction = frame.position, frame.direction
+
+    mask = frame.mask
+    if not cfg.sorting.use_unknown_cones:
+        mask = mask & (frame.cones[..., 2] != ConeTypes.UNKNOWN)
+
+    sort_out = sorting.run_cone_sorting(cfg, frame.cones, mask, position, direction)
+    ml, mlm = _pad_side(sort_out.left_cones, sort_out.left_mask, s_len)
+    mr, mrm = _pad_side(sort_out.right_cones, sort_out.right_mask, s_len)
+    match_out = matching.run_cone_matching(
+        cfg,
+        matching.MatchingInput(
+            left_cones=ml, left_mask=mlm, right_cones=mr, right_mask=mrm,
+            position=position, direction=direction,
+        ),
+    )
+
+    path_out = pathing.run_path_calculation(
+        cfg,
+        pathing.PathInput(
+            left_cones=match_out.left_cones,
+            left_mask=match_out.left_mask,
+            right_cones=match_out.right_cones,
+            right_mask=match_out.right_mask,
+            left_to_right=match_out.left_to_right,
+            right_to_left=match_out.right_to_left,
+            position=position,
+            direction=direction,
+        ),
+        state.global_path,
+        state.path,
+    )
+
+    new_state = PlannerState(path=path_out.state, reloc=state.reloc, global_path=state.global_path)
+    return (
+        StepOutput(
+            path=path_out.path,
+            path_ok=path_out.ok,
+            path_too_far=path_out.too_far,
+            relocalized=state.reloc.relocalized,
+            spline_budget_hit=path_out.spline_budget_hit,
+            sorted_left=sort_out.left_cones,
+            sorted_left_mask=sort_out.left_mask,
+            sorted_right=sort_out.right_cones,
+            sorted_right_mask=sort_out.right_mask,
+            left_with_virtual=match_out.left_cones,
+            left_mask=match_out.left_mask,
+            right_with_virtual=match_out.right_cones,
+            right_mask=match_out.right_mask,
+            left_to_right=match_out.left_to_right,
+            right_to_left=match_out.right_to_left,
+        ),
+        new_state,
+    )

@@ -2,9 +2,12 @@
 (full_pipeline/full_pipeline.py:53-217) on the PyTorch planner.
 
 Counterpart of `ft_fsd_path_planning_tpu/models/facade.py` for the sorting
-missions (trackdrive, autocross) without the sorting-result cache: the
-facade pads ragged host inputs into the fixed shape budget, runs one batched
-planner step with a batch of one on the device, and returns the path.
+missions (trackdrive, autocross): the facade pads ragged host inputs into
+the fixed shape budget, runs one batched planner step with a batch of one on
+the device, and returns the path. With
+``experimental_performance_improvements`` it keeps the reference's
+sorting-result cache on the host and decides per frame whether the sorter
+runs at all.
 """
 
 from __future__ import annotations
@@ -17,11 +20,16 @@ import torch
 
 from ft_fsd_path_planning_torch.config import PlannerConfig, default_config
 from ft_fsd_path_planning_torch.device import resolve_device
+from ft_fsd_path_planning_torch.models import sorting
 from ft_fsd_path_planning_torch.models.planner import (
     FrameInput,
+    PlannerState,
+    StepOutput,
     make_initial_state,
     planner_step,
+    planner_step_presorted,
 )
+from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
 
 FloatArray = np.ndarray
@@ -57,14 +65,84 @@ def flatten_cones_by_type(
     return pts, mask
 
 
+def _cone_arrays_are_similar(
+    a: Optional[np.ndarray], b: Optional[np.ndarray], threshold: float
+) -> bool:
+    """Host-side replica of the reference's similarity test
+    (core_trace_sorter.py:57-86): same shape, every cone within ``threshold``
+    of its nearest counterpart, matching colors."""
+    if a is None or b is None:
+        return False
+    if a.shape != b.shape:
+        return False
+    if a.shape[0] == 0:
+        return True
+    d = np.sum((a[:, None, :2] - b[None, :, :2]) ** 2, axis=-1)
+    closest = d.min(axis=1)
+    if not np.all(closest < threshold * threshold):
+        return False
+    if a.shape[1] == 2:
+        return True
+    idx = d.argmin(axis=1)
+    return bool(np.all(a[:, 2] == b[idx, 2]))
+
+
+def _remap_order(cached_sorted: np.ndarray, current_xy: np.ndarray) -> np.ndarray:
+    """Apply a cached sorted ORDER to the current cone positions: each cached
+    sorted cone is replaced by its nearest current cone (the similarity check
+    guarantees a unique <0.1 m counterpart; track cones are >=1.4 m apart).
+    Mirrors the reference cache-hit semantics where the cached config INDICES
+    are applied to the fresh flattened cone array
+    (core_trace_sorter.py:298-301 + :205-216)."""
+    if len(cached_sorted) == 0:
+        return cached_sorted
+    d = np.sum((cached_sorted[:, None] - current_xy[None]) ** 2, axis=-1)
+    return current_xy[d.argmin(axis=1)]
+
+
+def _start_cones(cfg: PlannerConfig, frame: FrameInput) -> tuple[np.ndarray, np.ndarray]:
+    """Per-side starting-cone selection only: the cheap program the sorting
+    cache's similarity check needs before deciding to skip the full sort
+    (the reference checks the starting cones first,
+    core_trace_sorter.py:218-250). ``frame`` has a batch of one; returns
+    (prefix (2, 2), n_first (2,)) on the host, row 0 LEFT and row 1 RIGHT."""
+    mask = frame.mask
+    if not cfg.sorting.use_unknown_cones:
+        mask = mask & (frame.cones[..., 2] != ConeTypes.UNKNOWN)
+    dev = frame.cones.device
+    cone_type = torch.tensor([int(ConeTypes.LEFT), int(ConeTypes.RIGHT)], device=dev)
+    two = lambda t: torch.cat([t, t], dim=0)  # noqa: E731
+    prefix, n_first = sorting.select_starting_cones(
+        cfg.sorting, two(frame.cones), two(mask), cone_type, two(frame.position), two(frame.direction)
+    )
+    both = torch.cat([prefix, n_first[:, None]], dim=1).cpu().numpy()  # one fetch
+    return both[:, :2], both[:, 2]
+
+
+def _fetch(tensors: tuple[torch.Tensor, ...]) -> list[np.ndarray]:
+    """Bring several small device tensors to the host in ONE transfer (each
+    separate ``.cpu()`` is a synchronising round trip): flattened into one
+    float32 buffer (the masks and small indices are exact in it), fetched,
+    and cut back into each tensor's shape and dtype."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
+    out, start = [], 0
+    for t in tensors:
+        arr = flat[start : start + t.numel()].reshape(tuple(t.shape))
+        if t.dtype == torch.bool:
+            arr = arr > 0.5
+        elif not t.dtype.is_floating_point:
+            arr = np.rint(arr).astype(np.int64)
+        out.append(arr)
+        start += t.numel()
+    return out
+
+
 class PathPlanner:
     """The reference PathPlanner for trackdrive and autocross.
 
     Runs on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"``). Not ported yet (ROADMAP.md, Queue A9/A10): the
-    sorting cache (``experimental_performance_improvements=True``),
-    ``set_global_path``, the relocalizer missions and
-    ``return_intermediate_results``.
+    ``device="cpu"``). Not ported yet (ROADMAP.md, Queue A10):
+    ``set_global_path`` and the relocalizer missions.
     """
 
     def __init__(
@@ -80,12 +158,15 @@ class PathPlanner:
             raise NotImplementedError(
                 "relocalizer missions are not ported yet (ROADMAP.md, Queue A10)"
             )
-        if self.cfg.experimental_performance_improvements:
-            raise NotImplementedError(
-                "the sorting-result cache is not ported yet (ROADMAP.md, Queue A9)"
-            )
         self.device = resolve_device(device)
         self._state = make_initial_state(self.cfg, 1, self.device)
+        # sorting-result cache (experimental_performance_improvements):
+        # reference ConeSortingCacheEntry, core_trace_sorter.py:100-110
+        self._sort_cache: Optional[dict] = None
+        self.sort_cache_hits: int = 0
+        self._use_sort_cache = (
+            self.cfg.experimental_performance_improvements and not self.cfg.has_relocalizer
+        )
 
     def _convert_direction_to_array(self, direction: Any) -> FloatArray:
         direction = np.squeeze(np.array(direction, float))
@@ -97,7 +178,7 @@ class PathPlanner:
 
     def set_global_path(self, global_path: Optional[FloatArray]) -> None:
         raise NotImplementedError(
-            "the global-path branch is not ported yet (ROADMAP.md, Queue A9)"
+            "the global-path branch is not ported yet (ROADMAP.md, Queue A10)"
         )
 
     def calculate_path_in_global_frame(
@@ -106,13 +187,12 @@ class PathPlanner:
         vehicle_position: FloatArray,
         vehicle_direction: Union[FloatArray, float],
         return_intermediate_results: bool = False,
-    ) -> FloatArray:
+    ) -> Union[FloatArray, Tuple[FloatArray, ...]]:
         """Run the full planning pipeline for one frame. Returns a (40, 4)
-        array of (spline_parameter, x, y, curvature) waypoints."""
-        if return_intermediate_results:
-            raise NotImplementedError(
-                "return_intermediate_results is not ported yet (ROADMAP.md, Queue A9)"
-            )
+        array of (spline_parameter, x, y, curvature) waypoints; with
+        ``return_intermediate_results`` the reference's 7-tuple (path,
+        sorted left, sorted right, left and right with virtual cones, and
+        the two match index arrays), unpadded."""
         vehicle_direction = self._convert_direction_to_array(vehicle_direction)
         pts, mask = flatten_cones_by_type(cones, self.cfg.shapes.n_cones)
         dev = self.device
@@ -122,5 +202,106 @@ class PathPlanner:
             position=torch.as_tensor(np.asarray(vehicle_position, np.float32), device=dev)[None],
             direction=torch.as_tensor(np.asarray(vehicle_direction, np.float32), device=dev)[None],
         )
-        out, self._state = planner_step(self.cfg, self._state, frame)
-        return out.path[0].cpu().numpy().astype(np.float64)
+        if self._use_sort_cache:
+            out, self._state = self._step_with_sort_cache(frame, pts, mask)
+        else:
+            out, self._state = planner_step(self.cfg, self._state, frame)
+
+        if not return_intermediate_results:
+            return out.path[0].cpu().numpy().astype(np.float64)
+
+        (path, sl, slm, sr, srm, lv, lm, rv, rm, l2r, r2l) = _fetch(
+            (
+                out.path[0],
+                out.sorted_left[0], out.sorted_left_mask[0],
+                out.sorted_right[0], out.sorted_right_mask[0],
+                out.left_with_virtual[0], out.left_mask[0],
+                out.right_with_virtual[0], out.right_mask[0],
+                out.left_to_right[0], out.right_to_left[0],
+            )
+        )
+
+        def unpad(arr, m):
+            return np.asarray(arr, np.float64)[: int(np.sum(m))]
+
+        def unpad_int(arr, m):
+            return np.asarray(arr)[: int(np.sum(m))].astype(int)
+
+        return (
+            np.asarray(path, np.float64),
+            unpad(sl, slm),
+            unpad(sr, srm),
+            unpad(lv, lm),
+            unpad(rv, rm),
+            unpad_int(l2r, lm),
+            unpad_int(r2l, rm),
+        )
+
+    def _step_with_sort_cache(
+        self, frame: FrameInput, pts: np.ndarray, mask: np.ndarray
+    ) -> tuple[StepOutput, PlannerState]:
+        """Reference sorting-result cache (core_trace_sorter.py:189-250,
+        298-301) at the facade boundary: if the per-side starting cones AND
+        the full flattened cone set each sit within 0.1 m (positions and
+        colors) of the previous frame's, skip the beam-search sorter and
+        run the step with the cached sorted order applied to the CURRENT
+        cone positions. Unlike the reference's per-side cache this reuses
+        only when BOTH sides hit (the step runs both sides as one search)."""
+        threshold = 0.1
+        if not self.cfg.sorting.use_unknown_cones:
+            mask = mask & (pts[:, 2] != ConeTypes.UNKNOWN)
+        flat = pts[mask]
+
+        prefix, n_first = _start_cones(self.cfg, frame)
+
+        def start_rows(side: int) -> np.ndarray:
+            idx = prefix[side, : int(n_first[side])]
+            return pts[idx] if len(idx) else np.zeros((0, 3), np.float32)
+
+        start_l, start_r = start_rows(0), start_rows(1)
+
+        c = self._sort_cache
+        hit = (
+            c is not None
+            and _cone_arrays_are_similar(start_l, c["start_l"], threshold)
+            and _cone_arrays_are_similar(start_r, c["start_r"], threshold)
+            and _cone_arrays_are_similar(flat, c["flat"], threshold)
+        )
+        entry = {"flat": flat, "start_l": start_l, "start_r": start_r}
+        if hit:
+            self.sort_cache_hits += 1
+            xy = flat[:, :2]
+            sl = np.array(c["sorted_l"])
+            sr = np.array(c["sorted_r"])
+            lm, rm = c["sorted_l_mask"], c["sorted_r_mask"]
+            sl[lm] = _remap_order(sl[lm], xy)
+            sr[rm] = _remap_order(sr[rm], xy)
+            # refresh the cache with THIS frame (keeping the cached sorted
+            # order applied to current positions): the reference rebuilds
+            # its ConeSortingCacheEntry from the fresh flattened cones every
+            # call (core_trace_sorter.py:189-196), so similarity is always
+            # frame-to-frame. Without this, slow cumulative SLAM drift
+            # (> 0.1 m total over a stable stretch) would force re-sorts
+            # the reference skips.
+            self._sort_cache = dict(
+                entry,
+                sorted_l=sl.astype(np.float32), sorted_l_mask=lm,
+                sorted_r=sr.astype(np.float32), sorted_r_mask=rm,
+            )
+            dev = self.device
+            return planner_step_presorted(
+                self.cfg,
+                self._state,
+                frame,
+                torch.as_tensor(self._sort_cache["sorted_l"], device=dev)[None],
+                torch.as_tensor(lm, device=dev)[None],
+                torch.as_tensor(self._sort_cache["sorted_r"], device=dev)[None],
+                torch.as_tensor(rm, device=dev)[None],
+            )
+
+        out, state = planner_step(self.cfg, self._state, frame)
+        sl, lm, sr, rm = _fetch(
+            (out.sorted_left[0], out.sorted_left_mask[0], out.sorted_right[0], out.sorted_right_mask[0])
+        )
+        self._sort_cache = dict(entry, sorted_l=sl, sorted_l_mask=lm, sorted_r=sr, sorted_r_mask=rm)
+        return out, state

@@ -79,6 +79,41 @@ def planner_step(
 ) -> tuple[StepOutput, PlannerState]:
     """One planner step for a batch of frames: (B, ...) state x (B, ...)
     frames -> (outputs, new state)."""
+    return _planner_step_impl(cfg, state, frame, None)
+
+
+def planner_step_presorted(
+    cfg: PlannerConfig,
+    state: PlannerState,
+    frame: FrameInput,
+    sorted_left: Tensor,  # (B, L, 2)
+    sorted_left_mask: Tensor,  # (B, L)
+    sorted_right: Tensor,
+    sorted_right_mask: Tensor,
+) -> tuple[StepOutput, PlannerState]:
+    """Step variant that skips the beam-search sorter and reuses a previous
+    frame's sorted cone order: the reference's
+    `experimental_performance_improvements` sorting-result cache
+    (core_trace_sorter.py:189-250, 298-301). When the facade's host-side
+    similarity check passes, the cached order (remapped onto the current
+    cone positions) is fed here and only matching and path calculation run."""
+    if cfg.has_relocalizer:
+        raise ValueError("presorted step only exists for the sorting pipeline")
+    presorted = sorting.SortingOutput(
+        left_cones=sorted_left,
+        left_mask=sorted_left_mask,
+        right_cones=sorted_right,
+        right_mask=sorted_right_mask,
+    )
+    return _planner_step_impl(cfg, state, frame, presorted)
+
+
+def _planner_step_impl(
+    cfg: PlannerConfig,
+    state: PlannerState,
+    frame: FrameInput,
+    presorted: sorting.SortingOutput | None,
+) -> tuple[StepOutput, PlannerState]:
     if cfg.has_relocalizer:
         raise NotImplementedError(
             "relocalizer missions (skidpad, acceleration) are not ported yet "
@@ -87,11 +122,13 @@ def planner_step(
     s_len = cfg.shapes.side_len
     position, direction = frame.position, frame.direction
 
-    mask = frame.mask
-    if not cfg.sorting.use_unknown_cones:
-        mask = mask & (frame.cones[..., 2] != ConeTypes.UNKNOWN)
-
-    sort_out = sorting.run_cone_sorting(cfg, frame.cones, mask, position, direction)
+    if presorted is None:
+        mask = frame.mask
+        if not cfg.sorting.use_unknown_cones:
+            mask = mask & (frame.cones[..., 2] != ConeTypes.UNKNOWN)
+        sort_out = sorting.run_cone_sorting(cfg, frame.cones, mask, position, direction)
+    else:
+        sort_out = presorted
     ml, mlm = _pad_side(sort_out.left_cones, sort_out.left_mask, s_len)
     mr, mrm = _pad_side(sort_out.right_cones, sort_out.right_mask, s_len)
     match_out = matching.run_cone_matching(

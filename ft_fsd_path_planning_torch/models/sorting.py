@@ -8,14 +8,16 @@ ranks the children by an incrementally kept partial cost and keeps the best
 K; the winner is chosen by the full 7-term cost (`sorting_cost.py`).
 
 Both sides of every frame run as one batch of G = 2B searches (``cone_type``
-is a (G,) tensor), as the JAX package vmaps over the side. This is the plain
-PyTorch port of the XLA scan `_beam_search_side`; the fused search kernel
-(`ops/pallas/beam_search.py`) is the next slice of the port.
+is a (G,) tensor), as the JAX package vmaps over the side. The search itself
+has two implementations that share their initial state: the fused kernel B2
+(`ops/beam_search.py`, one launch for all G searches) and the plain PyTorch
+port of the XLA scan (`_beam_scan`). :func:`_use_fused_beam` picks one.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 from ft_fsd_path_planning_torch.config import PlannerConfig, SortingConfig
 from ft_fsd_path_planning_torch.models import sorting_cost
 from ft_fsd_path_planning_torch.models.sorting_cost import left_sign
+from ft_fsd_path_planning_torch.ops import beam_search as bs
 from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
@@ -31,6 +34,21 @@ from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 Tensor = torch.Tensor
 
 _INF = math.inf
+
+
+def _use_fused_beam(device: torch.device) -> bool:
+    """Whether the search runs as the fused kernel B2 (`ops/beam_search.py`)
+    or as the scan, read from ``FT_FSD_FUSED_BEAM`` as in the JAX package.
+
+    On a CUDA device the kernel is the sorter's path unless the variable is
+    ``0``: the scan is thousands of small launches per call, the kernel one. On
+    the CPU the scan runs unless the variable is ``1``, which selects the
+    kernel's plain PyTorch version (the tests use it). A kernel that fails to
+    build or launch raises; it never selects the scan."""
+    flag = os.environ.get("FT_FSD_FUSED_BEAM", "")
+    if device.type == "cuda":
+        return flag != "0"
+    return flag == "1"
 
 
 def _invert(cone_type: Tensor) -> Tensor:
@@ -204,49 +222,41 @@ def _angle_xy(ax, ay, bx, by):
     return torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
 
 
-def _beam_search_side(
+def _gate_items(cfg: SortingConfig) -> tuple:
+    """The gate constants of the fused search, by name."""
+    return (
+        ("ellipse_major", cfg.ellipse_major),
+        ("ellipse_minor", cfg.ellipse_minor),
+        ("side_eps", math.radians(5.0)),
+        ("between_angle", cfg.between_angle),
+        ("between_dist", cfg.between_dist),
+        ("thr_abs", cfg.threshold_absolute_angle),
+        ("thr_dir", cfg.threshold_directional_angle),
+        ("close_dist", cfg.close_cone_dist),
+        ("car_size", cfg.car_size),
+        ("under_angle", math.radians(40.0)),
+    )
+
+
+def _initial_beam_state(
     cfg: SortingConfig,
     beam_width: int,
     points: Tensor,
-    mask: Tensor,
-    cone_type: Tensor,
     prefix: Tensor,
     n_first: Tensor,
-    car_position: Tensor,
     car_direction: Tensor,
-    node_table: Tensor,
-    target_length: Tensor,
 ) -> tuple[Tensor, Tensor]:
-    """Run the beam searches; returns (configs (G, K, L), pool_valid (G, K)).
+    """The packed search state before the first step: (feats (G, F, K),
+    alive (G, K) bool), slot 0 holding the start prefix.
 
-    The state is one (G, F, K) feature matrix, F = L + 16 rows: configs
-    (L), length, done, angle_sum, n_under, residual, init_cost, wrong_sum,
-    last_idx, last xy, prev xy, prev2 xy, first xy. Candidates are flat
-    j-major (G, C*K) arrays, which is the pool's child order, so ties break
-    as in the JAX package.
-    """
+    F = L + 16 rows: configs (L), length, done, angle_sum, n_under,
+    residual, init_cost, wrong_sum, last_idx, last xy, prev xy, prev2 xy,
+    first xy (the layout of `ops/beam_search.py`)."""
     g = points.shape[0]
     k = beam_width
     l = cfg.max_length
-    c = cfg.max_n_neighbors
-    ck = c * k
     dev = points.device
     xy = points[..., :2]
-    w = [float(v) for v in sorting_cost.WEIGHTS]
-    sgn = left_sign(cone_type)[:, None]
-    under_angle = geo.deg2rad(40.0)
-    cos_between = float(np.cos(np.float32(cfg.between_angle)))
-    side_eps = geo.deg2rad(5.0)
-
-    dnorm = car_direction / _norm(car_direction)[:, None]
-    car_s = car_position - dnorm * cfg.car_size / 2
-    car_e = car_position + dnorm * cfg.car_size
-    col = lambda v: v[:, None]  # noqa: E731  (G,) -> (G, 1)
-    car_sx, car_sy, car_ex, car_ey = col(car_s[:, 0]), col(car_s[:, 1]), col(car_e[:, 0]), col(car_e[:, 1])
-    cp_x, cp_y = col(car_position[:, 0]), col(car_position[:, 1])
-    cd_x, cd_y = col(car_direction[:, 0]), col(car_direction[:, 1])
-
-    # ---- initial state: slot 0 holds the start prefix
     two = n_first >= 2
     p0 = gl.take_rows(xy, prefix)  # (G, 2, 2); a -1 prefix reads a zero row
     init_cost0 = torch.where(two, geo.vec_angle_between(p0[:, 1] - p0[:, 0], car_direction), 0.0)
@@ -264,6 +274,84 @@ def _beam_search_side(
     for row in (l + 10, l + 12, l + 14):  # prev, prev2 and first start at p0[0]
         feats[:, row : row + 2, 0] = p0[:, 0]
     alive = (torch.arange(k, device=dev)[None, :] == 0) & (n_first >= 1)[:, None]
+    return feats, alive
+
+
+def _beam_search_side(
+    cfg: SortingConfig,
+    beam_width: int,
+    points: Tensor,
+    mask: Tensor,
+    cone_type: Tensor,
+    prefix: Tensor,
+    n_first: Tensor,
+    car_position: Tensor,
+    car_direction: Tensor,
+    node_table: Tensor,
+    target_length: Tensor,
+) -> tuple[Tensor, Tensor]:
+    """Run the beam searches; returns (configs (G, K, L), pool_valid (G, K))."""
+    l = cfg.max_length
+    feats, alive = _initial_beam_state(cfg, beam_width, points, prefix, n_first, car_direction)
+    if _use_fused_beam(points.device):
+        # the whole search loop as one call of kernel B2
+        params = torch.stack(
+            [
+                car_position[:, 0], car_position[:, 1],
+                car_direction[:, 0], car_direction[:, 1],
+                left_sign(cone_type), target_length.to(torch.float32),
+            ],
+            dim=1,
+        )
+        feats, alive_f = bs.fused_beam_search(
+            node_table.contiguous(), feats, alive.to(torch.float32), params,
+            k=beam_width, l=l, c=cfg.max_n_neighbors,
+            weights=tuple(float(sorting_cost.WEIGHTS[i]) for i in (0, 1, 2, 3, 6)),
+            gates=dict(_gate_items(cfg)),
+        )
+        alive = alive_f > 0.5
+    else:
+        feats, alive = _beam_scan(
+            cfg, feats, alive, cone_type, car_position, car_direction, node_table, target_length
+        )
+    out_configs = torch.round(feats[:, :l]).to(torch.int64).transpose(1, 2)
+    return out_configs, alive
+
+
+def _beam_scan(
+    cfg: SortingConfig,
+    feats: Tensor,
+    alive: Tensor,
+    cone_type: Tensor,
+    car_position: Tensor,
+    car_direction: Tensor,
+    node_table: Tensor,
+    target_length: Tensor,
+) -> tuple[Tensor, Tensor]:
+    """The search as a loop of L - 1 steps of plain PyTorch, from the packed
+    initial state; returns the final (feats (G, F, K), alive (G, K)).
+
+    Candidates are flat j-major (G, C*K) arrays, which is the pool's child
+    order, so ties break as in the JAX package.
+    """
+    g, _, k = feats.shape
+    l = cfg.max_length
+    c = cfg.max_n_neighbors
+    ck = c * k
+    dev = feats.device
+    w = [float(v) for v in sorting_cost.WEIGHTS]
+    sgn = left_sign(cone_type)[:, None]
+    under_angle = geo.deg2rad(40.0)
+    cos_between = float(np.cos(np.float32(cfg.between_angle)))
+    side_eps = geo.deg2rad(5.0)
+
+    dnorm = car_direction / _norm(car_direction)[:, None]
+    car_s = car_position - dnorm * cfg.car_size / 2
+    car_e = car_position + dnorm * cfg.car_size
+    col = lambda v: v[:, None]  # noqa: E731  (G,) -> (G, 1)
+    car_sx, car_sy, car_ex, car_ey = col(car_s[:, 0]), col(car_s[:, 1]), col(car_e[:, 0]), col(car_e[:, 1])
+    cp_x, cp_y = col(car_position[:, 0]), col(car_position[:, 1])
+    cd_x, cd_y = col(car_direction[:, 0]), col(car_direction[:, 1])
 
     def T(a: Tensor) -> Tensor:  # parent column (G, K) -> (G, C*K) j-major
         return a.repeat(1, c)
@@ -442,8 +530,7 @@ def _beam_search_side(
         feats[:, l + 7 : l + 8] = torch.where(invalid, -1.0, feats[:, l + 7 : l + 8])
         alive = sel_valid
 
-    out_configs = torch.round(feats[:, :l]).to(torch.int64).transpose(1, 2)
-    return out_configs, alive
+    return feats, alive
 
 
 def _postfilter_pool(

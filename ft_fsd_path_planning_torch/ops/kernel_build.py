@@ -25,6 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: flags a source adds to NVCC_FLAGS. beam_search.cu is held operation for
+#: operation against its plain version, which cannot fuse a product and a sum
+EXTRA_FLAGS = {"beam_search": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -40,9 +43,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -56,7 +63,7 @@ def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 

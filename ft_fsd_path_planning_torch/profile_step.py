@@ -4,9 +4,10 @@
 
 Runs ``batched_step`` on perturbed corridors (seed 0) after a warm-up and
 prints, as one JSON line: the step's wall time; the wall time of each stage
-(sorting, matching, path calculation, the FITPACK fits inside it and kernel
-B1), each measured with a synchronise before and after, so the stages do
-not overlap; and, from ``torch.profiler``, the device time summed over all
+(sorting with kernel B2 inside it, or the sorter's scan under
+``FT_FSD_FUSED_BEAM=0``; matching; path calculation, the FITPACK fits inside
+it and kernel B1), each measured with a synchronise before and after, so the
+stages do not overlap; and, from ``torch.profiler``, the device time summed over all
 kernels, the share of the step the device was idle, and the heaviest
 kernels by device time. Needs a CUDA device.
 """
@@ -23,7 +24,7 @@ import torch
 
 from ft_fsd_path_planning_torch.config import default_config
 from ft_fsd_path_planning_torch.models import planner
-from ft_fsd_path_planning_torch.ops import banded_cholesky, fitpack, spline
+from ft_fsd_path_planning_torch.ops import banded_cholesky, beam_search, fitpack, spline
 from ft_fsd_path_planning_torch.parallel import batch, scenarios
 
 
@@ -44,6 +45,8 @@ def stage_times(cfg, state, frames) -> dict:
     table: dict = defaultdict(float)
     patches = [
         (planner.sorting, "run_cone_sorting", "sorting"),
+        (planner.sorting.bs, "fused_beam_search", "B2 fused beam search (inside sorting)"),
+        (planner.sorting, "_beam_scan", "beam scan (inside sorting)"),
         (planner.matching, "run_cone_matching", "matching"),
         (planner.pathing, "run_path_calculation", "path_calculation"),
         (planner.pathing.fpk, "fitpack_fit", "fitpack_fit (inside path_calculation)"),
@@ -110,6 +113,7 @@ def main() -> None:
     step_ms = (time.perf_counter() - t0) * 1e3
 
     banded_cholesky.reset_launch_count()
+    beam_search.reset_launch_count()
     fitpack.loop_syncs = 0
     stages = stage_times(cfg, state, frames)
     smi = subprocess.run(
@@ -122,7 +126,9 @@ def main() -> None:
         "n_cones": args.n_cones,
         "step_ms": step_ms,
         "stage_ms": stages,
+        "sorter_search": "B2" if planner.sorting._use_fused_beam(frames.cones.device) else "scan",
         "b1_launches": banded_cholesky.launch_count,
+        "b2_launches": beam_search.launch_count,
         "fitpack_loop_syncs": fitpack.loop_syncs,
         **device_profile(cfg, state, frames, args.top),
     }), flush=True)

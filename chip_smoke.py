@@ -5,13 +5,15 @@
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds the hand-written kernels from ``csrc/`` (B1,
-the banded Cholesky solve, and B2, the fused beam search of the cone
-sorter), holds each against its plain PyTorch version on the card at the
-shapes the main path gives it, and drives the trackdrive main path:
-``batched_step`` at B = 256 on perturbed corridors (with B2 and, for
-comparison, with the sorter's scan), then the committed 300-frame session
-through ``PathPlanner`` without and with the sorting cache and through
-``replay_scan``. It checks the paths against the reference planner's golden
+the banded Cholesky solve with its bare and its fused, refined entry, and
+B2, the fused beam search of the cone sorter), holds each against its plain
+PyTorch version on the card at the shapes the main path gives it, and
+drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
+corridors (with B1's fused entry and, for comparison, with the composition
+of bare solves it replaces; with B2 and with the sorter's scan), then the
+committed 300-frame session through ``PathPlanner`` without and with the
+sorting cache and through ``replay_scan``. ``--kernels-only`` stops after
+the kernels' own phases. It checks the paths against the reference planner's golden
 paths, and prints one JSON line of kernel measurements and, last, one JSON
 line with the device. Any failed phase ends the run with a non-zero exit
 code and no result line. Without a CUDA device it exits non-zero at once.
@@ -44,10 +46,14 @@ FP32_FLOP_PER_S = 67e12
 
 BATCH, N_CONES = 256, 128  # the batch-throughput size
 REPLAY_N_CONES = 256  # the session flattens to 138 cones
-KERNEL_REL_TOL = 1e-4  # B1 vs plain version, relative to max |x|
 B2_FLOAT_TOL = 1e-6  # B2 vs plain version, float feature rows, absolute (integer-coded rows: equal)
 SESSION_CAPTURE_FRAMES = (0, 75, 150, 225)  # session frames whose searches B2 is checked on
+B1_EXACT_TOL = 0.0  # B1's entries keep every entry's summation order: equal bit for bit
+FUSED_F64_REL_TOL = 1e-5  # fused entry vs float64 solve on well-conditioned synthetic systems
 LATERAL_TOL = 0.01  # kernel path vs plain-solve path, metres
+FUSED_LATERAL_TOL = 0.0  # fused entry vs the composition of bare solves it replaces, metres
+AB_ROUNDS = 15  # steps of each kind when two versions of batched_step are timed in turns
+SIMILAR_THRESHOLD = 0.1  # the sort cache's cone-distance threshold, metres
 GOLDEN_MAX, GOLDEN_MEDIAN = 0.05, 0.01  # replay vs the reference planner, metres
 
 
@@ -68,6 +74,27 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` calls captured into one
+    CUDA graph and replayed: the host's time per call (the Python wrapper,
+    ctypes) is outside the measurement, the device's gap between two
+    launches inside it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -102,6 +129,9 @@ def read_counts(path: str) -> dict:
     counts = {"B1": bc.launch_count, "B2": bs.launch_count}
     for name, n in counts.items():
         check(n > 0, f"{path} did not launch {name}")
+    check(bc.launch_count == bc.bare_launch_count + bc.refined_launch_count, "B1's counts do not add up")
+    counts["B1 fused entry"] = bc.refined_launch_count
+    counts["B1 bare entry"] = bc.bare_launch_count
     return counts
 
 
@@ -137,11 +167,8 @@ def lateral(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return path_parity_deviation_paths(a.float(), b.float())
 
 
-def spd_band_systems(rng, b: int, c: int, r: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(band (b, c, 9), rhs (b, c, r), dense (b, c, c)) of random SPD systems
-    of half-bandwidth 4."""
-    from ft_fsd_path_planning_torch.ops.banded_cholesky import dense_to_band
-
+def spd_band_systems(rng, b: int, c: int, r: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dense (b, c, c), rhs (b, c, r)) of random SPD systems of half-bandwidth 4."""
     low = np.zeros((b, c, c))
     for off in range(5):
         idx = np.arange(c - off)
@@ -149,7 +176,7 @@ def spd_band_systems(rng, b: int, c: int, r: int, device) -> tuple[torch.Tensor,
     dense = low @ np.transpose(low, (0, 2, 1)) + np.eye(c) * 0.5
     dense = torch.tensor(dense, dtype=torch.float32, device=device)
     rhs = torch.tensor(rng.normal(size=(b, c, r)), dtype=torch.float32, device=device)
-    return dense_to_band(dense).contiguous(), rhs, dense
+    return dense, rhs
 
 
 def phase_device() -> dict:
@@ -175,86 +202,151 @@ def phase_build() -> None:
 
 
 def capture_main_path_solves(cfg, dev) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """Run one batched step and keep the first (band, rhs) of every distinct
-    shape the kernel is given, with how often each shape occurs."""
-    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    """Run one batched step and keep the (dense matrix, rhs) of every refined
+    solve the spline engine asks for, in call order."""
+    from ft_fsd_path_planning_torch.ops import spline
     from ft_fsd_path_planning_torch.parallel import batch, scenarios
 
-    seen: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
-    counts: Counter = Counter()
-    original = bc.banded_cholesky_solve_cuda
+    seen: list[tuple[torch.Tensor, torch.Tensor]] = []
+    original = spline.banded_refined_solve_cuda
 
-    def recording(band, rhs):
-        counts[tuple(rhs.shape)] += 1
-        seen.setdefault(tuple(rhs.shape), (band.clone(), rhs.clone()))
-        return original(band, rhs)
+    def recording(a, rhs):
+        seen.append((a.clone(), rhs.clone()))
+        return original(a, rhs)
 
-    bc.banded_cholesky_solve_cuda = recording
+    spline.banded_refined_solve_cuda = recording
     try:
         batch.batched_step(cfg, batch.make_batch_state(cfg, BATCH, dev), scenarios.make_frame_batch(cfg, BATCH, seed=1, device=dev))
         torch.cuda.synchronize()
     finally:
-        bc.banded_cholesky_solve_cuda = original
-    log(f"main-path solve shapes (B, C, R): {dict(counts)}")
+        spline.banded_refined_solve_cuda = original
+    log(f"main-path refined solves, shapes (B, C, R): {dict(Counter(tuple(rhs.shape) for _, rhs in seen))}")
     check(bool(seen), "the batched step never reached the banded solve")
-    return [seen[s] for s, _ in counts.most_common()]
+    return seen
 
 
-def phase_b1_vs_plain(cfg, dev) -> dict:
-    """B1 against its plain version at the main path's shapes (captured from a
-    batched step, plus a synthetic (256, 28, 2)) and the two test shapes."""
+def rel_err_f64(x: torch.Tensor, dense: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Per system, max |x - x64| / max |x64| against a float64 dense solve."""
+    want = torch.linalg.solve(dense.double(), rhs.double())
+    scale = want.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    return (x.double() - want).abs().amax(dim=(1, 2)) / scale
+
+
+def phase_b1_vs_plain(cfg, dev) -> list[dict]:
+    """Both entries of B1 against their plain versions: on every system a
+    batched step hands the spline engine, on a synthetic (256, 28, 2) and on
+    the two test shapes; the fused entry also through a strided view and
+    against a float64 solve. Then the times of both entries at the main
+    path's shape beside the empty launch, the composition the fused entry
+    replaces, the plain versions and torch.linalg.solve."""
     from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    from ft_fsd_path_planning_torch.ops import spline
 
     rng = np.random.default_rng(0)
     captured = capture_main_path_solves(cfg, dev)
-    cases = [("main path", band, rhs, None) for band, rhs in captured]
+    cases = [(f"main path solve {i}", a, rhs) for i, (a, rhs) in enumerate(captured)]
     for shape in ((256, 28, 2), (7, 51, 2), (3, 20, 1)):
-        cases.append(("synthetic",) + spd_band_systems(rng, *shape, dev))
+        cases.append((f"synthetic {shape}", *spd_band_systems(rng, *shape, dev)))
+    dense_t = cases[-3][1].transpose(1, 2)  # the same symmetric systems, read through other strides
+    cases.append(("synthetic (256, 28, 2), transposed view", dense_t, cases[-3][2]))
 
-    max_err = 0.0
-    for label, band, rhs, _ in cases:
-        got = bc.banded_cholesky_solve_cuda(band, rhs)
+    bare_err = fused_err = 0.0
+    bare_f64, fused_f64, main_err = [], [], [0.0, 0.0]
+    for label, dense, rhs in cases:
+        band = bc.dense_to_band(dense).contiguous()
+        got_bare = bc.banded_cholesky_solve_cuda(band, rhs)
+        got_fused = bc.banded_refined_solve_cuda(dense, rhs)
         torch.cuda.synchronize()
-        want = bc.banded_cholesky_solve_plain(band, rhs)
-        err = float((got - want).abs().max())
-        scale = max(1.0, float(want.abs().max()))
-        log(f"B1 {label} {tuple(rhs.shape)}: max|kernel - plain| = {err!r} (max|x| = {scale!r})")
-        check(bool(torch.isfinite(got).all()), f"kernel gave non-finite values at {tuple(rhs.shape)}")
-        check(err <= KERNEL_REL_TOL * scale, f"kernel disagrees with plain at {tuple(rhs.shape)}: {err}")
-        max_err = max(max_err, err)
+        want_bare = bc.banded_cholesky_solve_plain(band, rhs)
+        want_fused = bc.banded_refined_solve_plain(dense, rhs)
+        e_bare = float((got_bare - want_bare).abs().max())
+        e_fused = float((got_fused - want_fused).abs().max())
+        r_bare, r_fused = rel_err_f64(got_bare, dense, rhs), rel_err_f64(got_fused, dense, rhs)
+        if label.startswith("main path"):
+            bare_f64.append(r_bare)
+            fused_f64.append(r_fused)
+            main_err = [max(main_err[0], e_bare), max(main_err[1], e_fused)]
+        else:
+            check(float(r_fused.max()) <= FUSED_F64_REL_TOL, f"fused entry is off the float64 solve ({label}): {float(r_fused.max())}")
+            log(
+                f"B1 {label} {tuple(rhs.shape)}: max|kernel - plain| bare {e_bare!r}, fused {e_fused!r}; "
+                f"vs float64 solve, relative: bare median {float(r_bare.median())!r} max {float(r_bare.max())!r}, "
+                f"fused median {float(r_fused.median())!r} max {float(r_fused.max())!r}"
+            )
+        check(bool(torch.isfinite(got_bare).all() and torch.isfinite(got_fused).all()), f"B1 gave non-finite values ({label})")
+        check(e_bare <= B1_EXACT_TOL, f"B1's bare entry disagrees with its plain version ({label}): {e_bare}")
+        check(e_fused <= B1_EXACT_TOL, f"B1's fused entry disagrees with its plain version ({label}): {e_fused}")
+        bare_err, fused_err = max(bare_err, e_bare), max(fused_err, e_fused)
+    n_main = len(bare_f64)
+    bare_f64, fused_f64 = torch.cat(bare_f64), torch.cat(fused_f64)
+    log(
+        f"B1 on the {n_main} main-path solves ({bare_f64.numel()} systems): max|kernel - plain| bare "
+        f"{main_err[0]!r}, fused {main_err[1]!r}; relative error vs float64: "
+        f"bare median {float(bare_f64.median())!r} max {float(bare_f64.max())!r}; "
+        f"fused median {float(fused_f64.median())!r} max {float(fused_f64.max())!r}"
+    )
+    check(float(fused_f64.median()) <= float(bare_f64.median()), "the refinement round does not improve the solve")
 
     # timing at the main path's most frequent shape
-    band, rhs = captured[0]
+    shapes = Counter(tuple(rhs.shape) for _, rhs in captured)
+    dense, rhs = next(c for c in captured if tuple(c[1].shape) == shapes.most_common(1)[0][0])
+    band = bc.dense_to_band(dense).contiguous()
     b, c, r = rhs.shape
-    dense = torch.zeros((b, c, c), device=dev)
-    for d in range(bc.BW):
-        off = d - bc.HALF_BW
-        rows = torch.arange(max(0, -off), c - max(0, off), device=dev)
-        dense[:, rows, rows + off] = band[:, rows, d]
-    ms = cuda_ms(lambda: bc.banded_cholesky_solve_cuda(band, rhs), 200)
-    plain_ms = cuda_ms(lambda: bc.banded_cholesky_solve_plain(band, rhs), 10)
-    library_ms = cuda_ms(lambda: torch.linalg.solve(dense, rhs), 50)
-    nbytes = 4 * (band.numel() + 2 * rhs.numel())
-    flops = b * bc.solve_flops(c, r)
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    log(
-        f"B1 timing at {(b, c, r)}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-        f"torch.linalg.solve {library_ms!r} ms, bound {max(bytes_ms, ops_ms)!r} ms "
-        f"({nbytes} B, {flops} flop)"
+    composition = lambda: spline._banded_solve(bc.dense_to_band(dense).contiguous(), rhs)  # noqa: E731
+    bare, fused, empty = (
+        lambda: bc.banded_cholesky_solve_cuda(band, rhs),
+        lambda: bc.banded_refined_solve_cuda(dense, rhs),
+        lambda: bc.empty_launch_cuda(b, dev),
     )
-    return {
-        "name": "banded_cholesky_solve",
-        "route": "cuda",
-        "source": "ft_fsd_path_planning_torch/csrc/banded_cholesky.cu",
-        "replaces": "ft_fsd_path_planning_tpu/ops/pallas/banded_cholesky.py:36",
-        "launches": None,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-    }
+    # launched from Python one by one (what a caller sees; the host's time per
+    # call bounds it from below), then replayed from a CUDA graph (the device's)
+    eager = {"bare": cuda_ms(bare, 200), "fused": cuda_ms(fused, 200), "empty": cuda_ms(empty, 200)}
+    ms, fused_ms, empty_ms = graph_ms(bare, 200), graph_ms(fused, 200), graph_ms(empty, 200)
+    composition_ms, composition_graph_ms = cuda_ms(composition, 20), graph_ms(composition, 20)
+    log(
+        f"B1 launched one by one from Python at {tuple(rhs.shape)}: bare {eager['bare']!r} ms, fused {eager['fused']!r} ms, "
+        f"empty kernel {eager['empty']!r} ms; replayed from a CUDA graph: bare {ms!r} ms, fused {fused_ms!r} ms, empty kernel {empty_ms!r} ms"
+    )
+    plain_ms = cuda_ms(lambda: bc.banded_cholesky_solve_plain(band, rhs), 10)
+    fused_plain_ms = cuda_ms(lambda: bc.banded_refined_solve_plain(dense, rhs), 5)
+    library_ms = cuda_ms(lambda: torch.linalg.solve(dense, rhs), 50)
+    nbytes = bc.solve_bytes(b, c, r)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for name, entry_ms, entry_plain_ms, err, flops in (
+        ("banded_cholesky_solve", ms, plain_ms, bare_err, b * bc.solve_flops(c, r)),
+        ("banded_refined_solve", fused_ms, fused_plain_ms, fused_err, b * bc.refined_solve_flops(c, r)),
+    ):
+        ops_ms = flops / FP32_FLOP_PER_S * 1e3
+        log(
+            f"B1 {name} at {(b, c, r)}: kernel {entry_ms!r} ms, plain {entry_plain_ms!r} ms, "
+            f"torch.linalg.solve {library_ms!r} ms, bound {max(bytes_ms, ops_ms)!r} ms "
+            f"({nbytes} B, {flops} flop), empty launch on the same grid {empty_ms!r} ms (kernel and empty launch from a CUDA graph)"
+        )
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ft_fsd_path_planning_torch/csrc/banded_cholesky.cu",
+            "replaces": "ft_fsd_path_planning_tpu/ops/pallas/banded_cholesky.py:36",
+            "launches": None,
+            "max_abs_err": err,
+            "ms": entry_ms,
+            "plain_ms": entry_plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+            "empty_launch_ms": empty_ms,
+            "timed": "CUDA graph replay of 200 launches; plain_ms and library_ms launched one by one",
+            "one_by_one_ms": eager["bare" if name == "banded_cholesky_solve" else "fused"],
+            "one_by_one_empty_launch_ms": eager["empty"],
+        })
+    log(
+        "B1 the composition the fused entry replaces (dense_to_band, two bare solves, band_matvec, difference, sum): "
+        f"one by one {composition_ms!r} ms, from a CUDA graph {composition_graph_ms!r} ms"
+    )
+    rows[1]["composition_ms"] = composition_graph_ms
+    rows[1]["one_by_one_composition_ms"] = composition_ms
+    return rows
 
 
 def capture_searches(run) -> tuple[tuple, dict]:
@@ -337,7 +429,8 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
     table, feats0, alive0, params = args
     g, n = table.shape[:2]
     k, c = kwargs["k"], kwargs["c"]
-    ms = cuda_ms(lambda: bs.fused_beam_search_cuda(*args, **kwargs), 100)
+    eager_ms = cuda_ms(lambda: bs.fused_beam_search_cuda(*args, **kwargs), 100)
+    ms = graph_ms(lambda: bs.fused_beam_search_cuda(*args, **kwargs), 100)
     plain_ms = cuda_ms(lambda: bs.fused_beam_search_plain(*args, **kwargs), 3)
     cone_type = torch.where(params[:, bs.P_SIGN] > 0, 2, 1)  # ConeTypes.LEFT, RIGHT
     scan_ms = cuda_ms(
@@ -351,14 +444,19 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
     flops = g * bs.search_flops(n, k, l, c)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
     log(
-        f"B2 timing at G={g} N={n} K={k} L={l} C={c}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+        f"B2 timing at G={g} N={n} K={k} L={l} C={c}: kernel {ms!r} ms from a CUDA graph "
+        f"({eager_ms!r} ms launched one by one from Python), plain {plain_ms!r} ms, "
         f"the sorter's scan (the repo's other implementation, eager PyTorch) {scan_ms!r} ms, "
         f"bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B -> {bytes_ms!r} ms, {flops} flop -> {ops_ms!r} ms); "
         "no PyTorch call computes this function"
     )
     _, args1, kwargs1 = cases[1]
-    ms1 = cuda_ms(lambda: bs.fused_beam_search_cuda(*args1, **kwargs1), 100)
-    log(f"B2 timing at G={args1[0].shape[0]} N={args1[0].shape[1]} (one frame of the replay): kernel {ms1!r} ms")
+    eager_ms1 = cuda_ms(lambda: bs.fused_beam_search_cuda(*args1, **kwargs1), 100)
+    ms1 = graph_ms(lambda: bs.fused_beam_search_cuda(*args1, **kwargs1), 100)
+    log(
+        f"B2 timing at G={args1[0].shape[0]} N={args1[0].shape[1]} (one frame of the replay): kernel {ms1!r} ms "
+        f"from a CUDA graph ({eager_ms1!r} ms launched one by one)"
+    )
     return {
         "name": "fused_beam_search",
         "route": "cuda",
@@ -373,25 +471,44 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
         "library_ms": None,
         "scan_ms": scan_ms,
         "one_frame_ms": ms1,
+        "timed": "CUDA graph replay of 100 launches; plain_ms and scan_ms launched one by one",
+        "one_by_one_ms": eager_ms,
+        "one_by_one_one_frame_ms": eager_ms1,
     }
 
 
-def time_step(step) -> tuple[float, int]:
-    """(ms per call over 5 calls after the caller's warm-up, host syncs of one call)."""
-    syncs = count_syncs(step)
-    reps = 5
+def step_ms(step, reps: int) -> float:
+    """Host-clock ms per call over ``reps`` calls, after the caller's warm-up."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         step()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps * 1e3, syncs
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def time_step(step) -> tuple[float, int]:
+    """(ms per call over 5 calls, host syncs of one call)."""
+    syncs = count_syncs(step)
+    return step_ms(step, 5), syncs
+
+
+def kernel_count(step) -> int:
+    """Device kernels one call of ``step`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
 
 
 def phase_batched_step(cfg, dev) -> dict:
-    """batched_step at B = 256: counted run, timing, the same batch with the
+    """batched_step at B = 256: counted run, timing, then the same batch with
+    the composition of bare solves in place of B1's fused entry, with the
     plain solve forced and with the sorter's scan in place of B2, compared.
-    Returns both kernels' launches in one step."""
+    Returns the kernels' launches in one step."""
     from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
     from ft_fsd_path_planning_torch.ops import beam_search as bs
     from ft_fsd_path_planning_torch.ops import fitpack, spline
@@ -401,27 +518,87 @@ def phase_batched_step(cfg, dev) -> dict:
     state = batch.make_batch_state(cfg, BATCH, dev)
     step = lambda: batch.batched_step(cfg, state, frames)  # noqa: E731
 
+    solves = 0
+    solve_spd_banded = fitpack._solve_spd_banded
+
+    def counting(a, b):
+        nonlocal solves
+        solves += 1
+        return solve_spd_banded(a, b)
+
     reset_counts()
     fitpack.loop_syncs = 0
-    out, _ = step()
-    torch.cuda.synchronize()
+    fitpack._solve_spd_banded = counting
+    try:
+        out, _ = step()
+        torch.cuda.synchronize()
+    finally:
+        fitpack._solve_spd_banded = solve_spd_banded
     launches, loop_syncs = read_counts("batched_step"), fitpack.loop_syncs
-    log(f"batched_step B={BATCH}: launches {launches}, FITPACK loop-condition syncs {loop_syncs}")
+    log(
+        f"batched_step B={BATCH}: launches {launches}, solves the spline engine asked for {solves}, "
+        f"FITPACK loop-condition syncs {loop_syncs}"
+    )
+    check(launches["B1"] == solves, f"B1 launched {launches['B1']} times for {solves} solves: not one launch per solve")
+    check(launches["B1 bare entry"] == 0, "the main path launched B1's bare entry")
+    check(launches["B2"] == 1, f"B2 launched {launches['B2']} times in one step")
     check(out.path.shape == (BATCH, 40, 4), f"path shape {tuple(out.path.shape)}")
     check(bool(torch.isfinite(out.path).all()), "non-finite paths")
     metrics = batch.batch_metrics(out)
     log("metrics: " + json.dumps({k: float(v) for k, v in metrics._asdict().items()}))
     check(float(metrics.solve_success_rate) > 0.5, "most frames fell back to the previous path")
 
-    step_ms, syncs = time_step(step)
-    log(f"batched_step B={BATCH} with B2: {step_ms!r} ms/step, {BATCH / step_ms * 1e3!r} frames/s, {syncs} host syncs/step")
+    b2_ms, syncs = time_step(step)
+    log(f"batched_step B={BATCH} with B2: {b2_ms!r} ms/step, {BATCH / b2_ms * 1e3!r} frames/s, {syncs} host syncs/step")
 
-    spline.banded_cholesky_solve = bc.banded_cholesky_solve_plain
-    try:
+    # the composition B1's fused entry replaces, on the kernel's bare entry:
+    # same arithmetic, so the same paths; timed in turns within this call
+    @contextlib.contextmanager
+    def refined_solve(fn):
+        spline.banded_refined_solve_cuda = fn
+        try:
+            yield
+        finally:
+            spline.banded_refined_solve_cuda = bc.banded_refined_solve_cuda
+
+    def composition(a, rhs):
+        return spline._banded_solve(bc.dense_to_band(a).contiguous(), rhs)
+
+    with refined_solve(composition):
+        reset_counts()
+        comp_out, _ = step()
+        torch.cuda.synchronize()
+        comp_launches = bc.bare_launch_count
+        comp_kernels = kernel_count(step)
+    fused_kernels = kernel_count(step)
+    # one step of each in turns, so that the host's drift falls on both alike
+    fused_ms, comp_ms = [], []
+    for _ in range(AB_ROUNDS):
+        fused_ms.append(step_ms(step, 1))
+        with refined_solve(composition):
+            comp_ms.append(step_ms(step, 1))
+    dev_m = lateral(out.path, comp_out.path)
+    comp_metrics = batch.batch_metrics(comp_out)
+    log(
+        f"fused entry vs composition batched_step: max lateral {float(dev_m.max())!r} m, path_ok equal "
+        f"{bool((out.path_ok == comp_out.path_ok).all())}, metrics equal "
+        f"{all(float(a) == float(b) for a, b in zip(metrics, comp_metrics))}; B1 launches "
+        f"{launches['B1']} vs {comp_launches}; device kernels/step {fused_kernels} vs {comp_kernels}; ms/step over "
+        f"{AB_ROUNDS} steps of each in turns: fused median {float(np.median(fused_ms))!r} min {min(fused_ms)!r}, "
+        f"composition median {float(np.median(comp_ms))!r} min {min(comp_ms)!r}"
+    )
+    check(comp_launches == 2 * solves, "the composition did not launch the bare entry twice per solve")
+    check(float(dev_m.max()) <= FUSED_LATERAL_TOL, "fused-entry and composition paths differ")
+    check(bool((out.path_ok == comp_out.path_ok).all()), "fused entry and composition disagree on path_ok")
+    check(
+        float(metrics.solve_success_rate) == float(comp_metrics.solve_success_rate)
+        and float(metrics.spline_budget_hit_rate) == float(comp_metrics.spline_budget_hit_rate),
+        "fused entry and composition disagree on solve_success_rate or spline_budget_hit_rate",
+    )
+
+    with refined_solve(bc.banded_refined_solve_plain):
         plain_out, _ = step()
         torch.cuda.synchronize()
-    finally:
-        spline.banded_cholesky_solve = bc.banded_cholesky_solve
     dev_m = lateral(out.path, plain_out.path)
     log(f"kernel vs plain-solve batched_step: max lateral {float(dev_m.max())!r} m, path_ok equal {bool((out.path_ok == plain_out.path_ok).all())}")
     check(float(dev_m.max()) < LATERAL_TOL, "kernel and plain-solve paths differ")
@@ -480,6 +657,64 @@ def replay_facade(planner, args, golden, label: str) -> tuple[np.ndarray, dict]:
     return paths, launches
 
 
+@contextlib.contextmanager
+def similarity_log():
+    """Record every similarity test the sort cache makes inside the block:
+    (frame, largest distance of a cone to its nearest counterpart in the
+    previous frame in metres, or None where the arrays differ in shape or
+    there is no previous frame, the test's verdict). A frame makes up to
+    three tests (left start cones, right start cones, all cones) and stops
+    at the first that fails."""
+    from ft_fsd_path_planning_torch.models import facade
+
+    original = facade._cone_arrays_are_similar
+    calls: list[tuple[int, float | None, bool]] = []
+    frame = -1
+
+    def recording(a, b, threshold):
+        verdict = original(a, b, threshold)
+        dist = None
+        if a is not None and b is not None and a.shape == b.shape and a.shape[0] > 0:
+            d = np.sum((a[:, None, :2] - b[None, :, :2]) ** 2, axis=-1)
+            dist = float(np.sqrt(d.min(axis=1).max()))
+        calls.append((frame, dist, verdict))
+        return verdict
+
+    step = facade.PathPlanner._step_with_sort_cache
+
+    def stepping(self, *a, **kw):
+        nonlocal frame
+        frame += 1
+        return step(self, *a, **kw)
+
+    facade._cone_arrays_are_similar = recording
+    facade.PathPlanner._step_with_sort_cache = stepping
+    try:
+        yield calls
+    finally:
+        facade._cone_arrays_are_similar = original
+        facade.PathPlanner._step_with_sort_cache = step
+
+
+def report_similarity(calls: list, n_frames: int) -> None:
+    """Log the hit frames, each frame's largest cone distance beside the
+    threshold, and the frames that sit within 1 mm of it."""
+    per_frame = []
+    for f in range(n_frames):
+        mine = [(d, ok) for g, d, ok in calls if g == f]
+        hit = len(mine) == 3 and all(ok for _, ok in mine)
+        dists = [d for d, _ in mine if d is not None]
+        per_frame.append((f, hit, max(dists) if dists else None))
+    hits = [f for f, hit, _ in per_frame if hit]
+    log(f"sort cache hit frames ({len(hits)}): {hits}")
+    log(
+        f"sort cache, per frame [frame, hit, largest cone distance in the tests made, m; threshold {SIMILAR_THRESHOLD}]: "
+        + json.dumps([[f, int(hit), None if d is None else round(d, 6)] for f, hit, d in per_frame])
+    )
+    near = [(f, hit, d) for f, hit, d in per_frame if d is not None and abs(d - SIMILAR_THRESHOLD) < 1e-3]
+    log(f"sort cache frames within 1 mm of the threshold: {[[f, int(hit), d] for f, hit, d in near]}")
+
+
 def phase_replay(cfg, dev) -> dict:
     """The 300-frame session through PathPlanner (latency, golden parity),
     through PathPlanner with the sorting cache, and through replay_scan
@@ -501,7 +736,9 @@ def phase_replay(cfg, dev) -> dict:
 
     cached_cfg = dataclasses.replace(cfg, experimental_performance_improvements=True)
     cached = PathPlanner(MissionTypes.trackdrive, config=cached_cfg, device=dev)
-    _, cached_launches = replay_facade(cached, args, golden["paths_cached"], "PathPlanner replay with the sort cache")
+    with similarity_log() as similarity:
+        _, cached_launches = replay_facade(cached, args, golden["paths_cached"], "PathPlanner replay with the sort cache")
+    report_similarity(similarity, len(args))
     ref_hits, ref_checks = (int(x) for x in golden["ref_cache_hits"])
     log(
         f"sort cache: {cached.sort_cache_hits} of {len(args)} frames hit (both sides at once); "
@@ -528,6 +765,10 @@ def phase_replay(cfg, dev) -> dict:
 
 
 def main() -> int:
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] and not kernels_only:
+        print("usage: python3 chip_smoke.py [--kernels-only]", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU machine", file=sys.stderr)
         return 1
@@ -540,14 +781,23 @@ def main() -> int:
     phase_build()
     cfg = default_config(n_cones=N_CONES)
     replay_cfg = default_config(MissionTypes.trackdrive, n_cones=REPLAY_N_CONES)
-    kernels = {"B1": phase_b1_vs_plain(cfg, dev), "B2": phase_b2_vs_plain(cfg, replay_cfg, dev)}
+    b1_bare, b1_fused = phase_b1_vs_plain(cfg, dev)
+    b2 = phase_b2_vs_plain(cfg, replay_cfg, dev)
+    if kernels_only:
+        log("kernels-only run: the main path was not driven, no result line")
+        return 2
     step_launches = phase_batched_step(cfg, dev)
     replay_launches = phase_replay(replay_cfg, dev)
-    for name, kernel in kernels.items():
-        kernel["launches"] = step_launches[name]  # one batched_step at B = 256
-        kernel["launches_replay"] = replay_launches["replay"][name]
-        kernel["launches_cached_replay"] = replay_launches["cached_replay"][name]
-    log(json.dumps({"kernels": list(kernels.values())}))
+    # B1's two entries are one kernel: the first row counts its launches
+    # through either entry and times the bare one, the second is the fused
+    # entry, the one the main path takes
+    rows = ((b1_bare, "B1"), (b1_fused, "B1 fused entry"), (b2, "B2"))
+    for kernel, count in rows:
+        kernel["launches"] = step_launches[count]  # one batched_step at B = 256
+        kernel["launches_replay"] = replay_launches["replay"][count]
+        kernel["launches_cached_replay"] = replay_launches["cached_replay"][count]
+    b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
+    log(json.dumps({"kernels": [kernel for kernel, _ in rows]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

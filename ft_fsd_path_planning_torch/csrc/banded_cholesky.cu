@@ -1,121 +1,367 @@
 // Batched banded SPD solve A x = b for the FITPACK spline engine, on Hopper.
 //
 // Replaces the Pallas TPU kernel ft_fsd_path_planning_tpu/ops/pallas/
-// banded_cholesky.py::_kernel (called through banded_cholesky_solve). Same
-// arithmetic: Cholesky factor of the half-bandwidth-4 band, forward then
-// back substitution, the pivot clamped as sqrt(max(acc, 1e-20)) and every
-// row scaled by the reciprocal of its diagonal. Products and differences are
-// written with the round-to-nearest intrinsics so that nvcc cannot contract
-// them into FMAs: the kernel then repeats the plain PyTorch version
-// (ops/banded_cholesky.py::banded_cholesky_solve_plain) operation for
+// banded_cholesky.py::_kernel (called through banded_cholesky_solve) and,
+// in its fused entry, everything ft_fsd_path_planning_tpu/ops/spline.py::
+// _banded_solve wraps around two calls of it. Two entries, one kernel:
+//
+//   * banded_cholesky_solve_f32, the TPU kernel's own function: band
+//     (B, C, 9) with band[b, i, d] = A[i, i - 4 + d], rhs (B, C, R) -> x.
+//     Cholesky factor of the half-bandwidth-4 band, forward then back
+//     substitution, the pivot clamped as sqrt(max(acc, 1e-20)) and every row
+//     scaled by the reciprocal of its diagonal.
+//   * banded_refined_solve_dense_f32, what the spline engine needs from it:
+//     the dense (B, C, C) matrix with its strides -> the refined solution.
+//     The block reads the nine diagonals where they lie, factors the band
+//     once, solves, forms rhs - A x from the band it holds (the sum over
+//     d = 0..8 in that order, starting from 0), runs both substitutions again
+//     with the same factor and adds the correction. One launch takes the
+//     place of two solves and some fifty small PyTorch kernels around them.
+//
+// Products, sums and differences are written with the round-to-nearest
+// intrinsics so that nvcc cannot contract them into FMAs, and every entry
+// keeps the summation order of the plain PyTorch versions (ops/
+// banded_cholesky.py::banded_cholesky_solve_plain and
+// banded_refined_solve_plain): the kernel repeats them operation for
 // operation.
 //
-// Layout: band (B, C, 9) with band[b, i, d] = A[i, i - 4 + d], rhs and out
-// (B, C, R), all float32 and contiguous. One thread solves one system; C and
-// R are template parameters, so the row recurrence unrolls at compile time
-// and the 5-wide rows of L stay in registers, as the TPU kernel unrolls it
-// at trace time. The TPU's 128-lane batch tile has no counterpart here: no
-// padding, no transposes.
+// Design. One warp holds one system and a block is one warp, so a batch of
+// 256 is 256 small blocks over all 132 SMs. A lone warp keeps only a few
+// loads in flight, so what a warp has to fetch is kept small: it copies its
+// system's band and right-hand sides into shared memory with asynchronous
+// 16-byte copies (cp.async) by neighbouring lanes, all issued before the one
+// wait (the dense entry gathers the nine diagonals, 36 contiguous bytes a
+// row, 4 bytes a copy). What is serial stays in registers, what is
+// independent goes to the lanes. The factorisation runs row by row with the
+// last four rows of L in registers; a row waits for nothing but the previous
+// row's reciprocal, its own last product, the pivot's square root and
+// division. The forward substitution of the right-hand sides rides in the
+// same loop (lane r carries column r) and fills the slots that chain leaves
+// empty. The back substitution, and the refinement's two, keep the last four
+// values in registers and read the coming row ahead; rows at the band's edge
+// have their own guarded code, so the rows between carry no tests. The
+// residual's C*R entries are independent and spread over the 32 lanes, as
+// are the copies in and the stores out. There is no synchronisation inside a
+// loop. C is a run-time value up to kMaxC; only R (1 or 2) is a template
+// parameter.
 //
 // What bounds it on an H100: at C = 28, R = 2 a system moves
-// (28 * 9 + 2 * 28 * 2) * 4 B = 1.46 KB, so a batch of 256 moves 374 KB,
-// about 0.11 us at 3.35 TB/s, and does ~10 kFLOP per system. Neither bytes
-// nor operations bound it: launch latency and the serial dependency chain of
-// the row recurrence (each row waits for the previous one) do. The design
-// answers that with the least it can: one launch per solve, no
-// synchronisation, and the whole recurrence in registers. Coalesced loads (a
-// (C, 9, B) layout or staging through shared memory) and several threads per
-// system are left for later work.
+// (28 * 9 + 2 * 28 * 2) * 4 B = 1.46 KB, so a batch of 256 moves 373 KB,
+// about 0.11 us at 3.35 TB/s, and does ~10 kflop per system (~0.04 us at
+// 67 TFLOP/s). Neither bytes nor operations bound it: the cost of a launch
+// and the serial chain of the row recurrence (a square root and a division
+// in every row, each waiting for the previous row) do. banded_empty_launch
+// launches an empty kernel on the same grid, the floor any single launch has.
 //
-// C interface: banded_cholesky_solve_f32 returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue for a shape that has
-// no instantiation.
+// C interface: each function returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for a shape the kernel does not
+// take (C > kMaxC, R not 1 or 2).
 
 #include <cuda_runtime.h>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kHalf = 4;           // half-bandwidth w
+// With -DB1_PHASE_CLOCKS block 0 stamps clock64() at the end of each phase
+// (profile_b1_phases.py reads the stamps); without it PHASE is nothing.
+#ifdef B1_PHASE_CLOCKS
+__device__ long long g_phase_clocks[9];
+#define PHASE(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_clocks[k] = clock64(); } while (0)
+#else
+#define PHASE(k)
+#endif
+
+constexpr int kHalf = 4;              // half-bandwidth w
 constexpr int kBand = 2 * kHalf + 1;  // 9 stored band columns
-constexpr int kThreads = 128;
+constexpr int kThreads = 32;          // one warp, one system, per block
+constexpr int kMaxC = 64;
+constexpr int kPad = 4;               // floats past the last array, for reads one row ahead
 
-template <int C, int R>
-__global__ void __launch_bounds__(kThreads)
-banded_cholesky_kernel(const float* __restrict__ band, const float* __restrict__ rhs,
-                       float* __restrict__ out, int batch) {
-  const int sys = blockIdx.x * blockDim.x + threadIdx.x;
-  if (sys >= batch) return;
-  const float* a = band + static_cast<size_t>(sys) * C * kBand;
-  const float* b = rhs + static_cast<size_t>(sys) * C * R;
-  float* x = out + static_cast<size_t>(sys) * C * R;
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
-  // l[i][d] = L[i, i - w + d], d = 0..w (d = w is the diagonal)
-  float l[C][kHalf + 1];
-  float inv_diag[C];
+// floats of shared memory a system needs: band, the four sub-diagonals of L,
+// 1/diag, rhs, y, x, residual, padding (5.5 KB at C = 64, R = 2)
+__host__ __device__ inline int system_floats(int c, int r) { return (kBand + kHalf + 1) * c + 4 * r * c + kPad; }
 
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    float acc = a[i * kBand + kHalf];
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) {
-      if (i - kHalf + d >= 0) acc = __fsub_rn(acc, __fmul_rn(l[i][d], l[i][d]));
-    }
-    const float diag = __fsqrt_rn(acc < 1e-20f ? 1e-20f : acc);
-    l[i][kHalf] = diag;
-    inv_diag[i] = __fdiv_rn(1.0f, diag);
-#pragma unroll
-    for (int j = i + 1; j < i + kHalf + 1; ++j) {
-      if (j < C) {
-        float s = a[j * kBand + kHalf - (j - i)];  // A[j, i]
-#pragma unroll
-        for (int k = (j - kHalf > 0 ? j - kHalf : 0); k < i; ++k) {
-          s = __fsub_rn(s, __fmul_rn(l[j][k - (j - kHalf)], l[i][k - (i - kHalf)]));
-        }
-        l[j][i - (j - kHalf)] = __fmul_rn(s, inv_diag[i]);
-      }
-    }
-  }
+// Asynchronous copies global -> shared: they pass through no register, so a
+// lane issues all of its copies and waits once.
+__device__ __forceinline__ void copy_async_4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_async_16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\n cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  // forward substitution L y = b (y kept in yx)
-  float yx[C][R];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float acc = b[i * R + r];
-#pragma unroll
-      for (int k = (i - kHalf > 0 ? i - kHalf : 0); k < i; ++k) {
-        acc = __fsub_rn(acc, __fmul_rn(l[i][k - (i - kHalf)], yx[k][r]));
-      }
-      yx[i][r] = __fmul_rn(acc, inv_diag[i]);
-    }
-  }
-
-  // back substitution L^T x = y (overwrites yx from the last row up)
-#pragma unroll
-  for (int i = C - 1; i >= 0; --i) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float acc = yx[i][r];
-#pragma unroll
-      for (int j = i + 1; j < i + kHalf + 1; ++j) {
-        if (j < C) acc = __fsub_rn(acc, __fmul_rn(l[j][i - (j - kHalf)], yx[j][r]));
-      }
-      yx[i][r] = __fmul_rn(acc, inv_diag[i]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) x[i * R + r] = yx[i][r];
+// Start the copy of n contiguous floats into shared memory: 16 bytes a lane,
+// neighbouring lanes on neighbouring addresses, where both ends and n allow
+// it, 4 bytes else.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n, int lane) {
+  const bool by_16 = (n % 4 == 0) && ((reinterpret_cast<uintptr_t>(src) & 15) == 0) &&
+                     ((__cvta_generic_to_shared(dst) & 15) == 0);
+  if (by_16) {
+    for (int e = 4 * lane; e < n; e += 4 * kThreads) copy_async_16(dst + e, src + e);
+  } else {
+    for (int e = lane; e < n; e += kThreads) copy_async_4(dst + e, src + e);
   }
 }
 
-template <int C, int R>
-int launch(const float* band, const float* rhs, float* out, int batch, cudaStream_t stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  banded_cholesky_kernel<C, R><<<blocks, kThreads, 0, stream>>>(band, rhs, out, batch);
+// The last four rows of L and of y as the factorisation moves down the band.
+struct Window {
+  float l[kHalf][kHalf];  // l[t][d] = L[j-4+t, j-8+t+d]
+  float inv[kHalf];       // 1 / L[j-4+t, j-4+t]
+  float y[kHalf];         // y[j-4+t] of this lane's right-hand side
+};
+
+// Row j of the Cholesky factor and of the forward substitution L y = src.
+// Entry L[j, k] sums its products over m = j-4..k-1 in ascending order, the
+// pivot and y[j] over k = j-4..j-1, as the plain version does. kEdge rows
+// (j < 4) test which of those exist. a[0..4] = A[j, j-4..j]. Of the results
+// lane t < 4 stores L[j, j-4+t], lane 0 stores 1/diag, lane r < R stores y[j].
+template <int R, bool kEdge>
+__device__ __forceinline__ void factor_row(int j, const float (&a)[kHalf + 1], float rhs_j, Window& w,
+                                           float* __restrict__ l, float* __restrict__ inv,
+                                           float* __restrict__ y, int lane) {
+  float cur[kHalf];  // cur[t] = L[j, j-4+t]
+#pragma unroll
+  for (int t = 0; t < kHalf; ++t) {
+    float s = a[t];
+#pragma unroll
+    for (int u = 0; u < t; ++u) {
+      if (!kEdge || j - kHalf + u >= 0) s = sub(s, mul(cur[u], w.l[t][u - t + kHalf]));
+    }
+    cur[t] = (!kEdge || j - kHalf + t >= 0) ? mul(s, w.inv[t]) : 0.0f;
+  }
+  float acc = a[kHalf], fwd = rhs_j;
+#pragma unroll
+  for (int t = 0; t < kHalf; ++t) {
+    if (!kEdge || j - kHalf + t >= 0) {
+      acc = sub(acc, mul(cur[t], cur[t]));
+      fwd = sub(fwd, mul(cur[t], w.y[t]));
+    }
+  }
+  const float diag = __fsqrt_rn(acc < 1e-20f ? 1e-20f : acc);
+  const float inv_diag = __fdiv_rn(1.0f, diag);
+  const float y_j = mul(fwd, inv_diag);
+
+  if (lane < kHalf) l[j * kHalf + lane] = lane == 0 ? cur[0] : lane == 1 ? cur[1] : lane == 2 ? cur[2] : cur[3];
+  if (lane == 0) inv[j] = inv_diag;
+  if (lane < R) y[j * R + lane] = y_j;
+#pragma unroll
+  for (int t = 0; t + 1 < kHalf; ++t) {
+    w.inv[t] = w.inv[t + 1];
+    w.y[t] = w.y[t + 1];
+#pragma unroll
+    for (int d = 0; d < kHalf; ++d) w.l[t][d] = w.l[t + 1][d];
+  }
+  w.inv[kHalf - 1] = inv_diag;
+  w.y[kHalf - 1] = y_j;
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) w.l[kHalf - 1][d] = cur[d];
+}
+
+// Factor the band and solve L y = src in one pass over the rows. Every lane
+// runs all of it on the same band (the same values in each) with the
+// right-hand side column r of its own; the coming row is read ahead.
+template <int R>
+__device__ __forceinline__ void factor_and_forward(const float* __restrict__ band, const float* __restrict__ src,
+                                                   float* __restrict__ l, float* __restrict__ inv,
+                                                   float* __restrict__ y, int c, int lane, int r) {
+  Window w;
+#pragma unroll
+  for (int t = 0; t < kHalf; ++t) {
+    w.inv[t] = 0.0f;
+    w.y[t] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kHalf; ++d) w.l[t][d] = 0.0f;
+  }
+  float a[kHalf + 1], rhs_j = src[r];
+#pragma unroll
+  for (int t = 0; t <= kHalf; ++t) a[t] = band[t];
+  // each turn reads row j + 1 ahead; past the last row that is what follows
+  // in shared memory, unused
+  auto row = [&](int j, auto edge) {
+    float next[kHalf + 1];
+#pragma unroll
+    for (int t = 0; t <= kHalf; ++t) next[t] = band[(j + 1) * kBand + t];
+    const float rhs_next = src[(j + 1) * R + r];
+    factor_row<R, decltype(edge)::value>(j, a, rhs_j, w, l, inv, y, lane);
+#pragma unroll
+    for (int t = 0; t <= kHalf; ++t) a[t] = next[t];
+    rhs_j = rhs_next;
+  };
+  int j = 0;
+  for (; j < kHalf && j < c; ++j) row(j, std::true_type{});
+#pragma unroll 4
+  for (; j < c; ++j) row(j, std::false_type{});  // four turns bring the window round: no register moves
+}
+
+// Forward substitution L y = src for column r, L read from shared memory.
+template <int R>
+__device__ __forceinline__ void forward(const float* __restrict__ l, const float* __restrict__ inv,
+                                        const float* __restrict__ src, float* __restrict__ y, int c, int r) {
+  float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f, w3 = 0.0f;  // y[i-4], y[i-3], y[i-2], y[i-1]
+  const int edge = c < kHalf ? c : kHalf;
+  for (int i = 0; i < edge; ++i) {
+    const float* li = l + i * kHalf;
+    float acc = src[i * R + r];
+    if (i >= 4) acc = sub(acc, mul(li[0], w0));
+    if (i >= 3) acc = sub(acc, mul(li[1], w1));
+    if (i >= 2) acc = sub(acc, mul(li[2], w2));
+    if (i >= 1) acc = sub(acc, mul(li[3], w3));
+    const float v = mul(acc, inv[i]);
+    y[i * R + r] = v;
+    w0 = w1; w1 = w2; w2 = w3; w3 = v;
+  }
+  if (c <= kHalf) return;
+  const float* ln = l + kHalf * kHalf;
+  float n0 = ln[0], n1 = ln[1], n2 = ln[2], n3 = ln[3], ninv = inv[kHalf], nsrc = src[kHalf * R + r];
+#pragma unroll 4
+  for (int i = kHalf; i < c; ++i) {
+    const float c0 = n0, c1 = n1, c2 = n2, c3 = n3, cinv = ninv, csrc = nsrc;
+    ln = l + (i + 1) * kHalf;  // past the last row: what follows in shared memory, unused
+    n0 = ln[0]; n1 = ln[1]; n2 = ln[2]; n3 = ln[3];
+    ninv = inv[i + 1];
+    nsrc = src[(i + 1) * R + r];
+    const float v = mul(sub(sub(sub(sub(csrc, mul(c0, w0)), mul(c1, w1)), mul(c2, w2)), mul(c3, w3)), cinv);
+    y[i * R + r] = v;
+    w0 = w1; w1 = w2; w2 = w3; w3 = v;
+  }
+}
+
+// Back substitution L^T x = y for column r; with kAdd the result is added to
+// what dst holds (the refinement's correction).
+template <int R, bool kAdd>
+__device__ __forceinline__ void backward(const float* __restrict__ l, const float* __restrict__ inv,
+                                         const float* __restrict__ y, float* __restrict__ dst, int c, int r) {
+  float v1 = 0.0f, v2 = 0.0f, v3 = 0.0f, v4 = 0.0f;  // x[i+1], x[i+2], x[i+3], x[i+4]
+  const int inner = c - kHalf - 1;  // the last row with four rows below it
+  for (int i = c - 1; i > inner && i >= 0; --i) {
+    float acc = y[i * R + r];
+    if (i + 1 < c) acc = sub(acc, mul(l[(i + 1) * kHalf + 3], v1));
+    if (i + 2 < c) acc = sub(acc, mul(l[(i + 2) * kHalf + 2], v2));
+    if (i + 3 < c) acc = sub(acc, mul(l[(i + 3) * kHalf + 1], v3));
+    if (i + 4 < c) acc = sub(acc, mul(l[(i + 4) * kHalf + 0], v4));
+    const float v = mul(acc, inv[i]);
+    dst[i * R + r] = kAdd ? __fadd_rn(dst[i * R + r], v) : v;
+    v4 = v3; v3 = v2; v2 = v1; v1 = v;
+  }
+  if (inner < 0) return;
+  // row i reads L[i+1, i], L[i+2, i], L[i+3, i], L[i+4, i]
+  float m1 = l[(inner + 1) * kHalf + 3], m2 = l[(inner + 2) * kHalf + 2], m3 = l[(inner + 3) * kHalf + 1],
+        m4 = l[(inner + 4) * kHalf + 0];
+  float minv = inv[inner], my = y[inner * R + r], mdst = kAdd ? dst[inner * R + r] : 0.0f;
+#pragma unroll 4
+  for (int i = inner; i >= 0; --i) {
+    const float e1 = m1, e2 = m2, e3 = m3, e4 = m4, cinv = minv, cy = my, cdst = mdst;
+    // row i - 1; before the first row this reads what precedes in shared memory, unused
+    m1 = l[i * kHalf + 3];
+    m2 = l[(i + 1) * kHalf + 2];
+    m3 = l[(i + 2) * kHalf + 1];
+    m4 = l[(i + 3) * kHalf + 0];
+    minv = inv[i - 1];
+    my = y[(i - 1) * R + r];
+    if (kAdd) mdst = dst[(i - 1) * R + r];
+    const float v = mul(sub(sub(sub(sub(cy, mul(e1, v1)), mul(e2, v2)), mul(e3, v3)), mul(e4, v4)), cinv);
+    dst[i * R + r] = kAdd ? __fadd_rn(cdst, v) : v;
+    v4 = v3; v3 = v2; v2 = v1; v1 = v;
+  }
+}
+
+// kFused: `a` is the dense matrix (element strides sa0, sa1, sa2) and the
+// solve is refined once; else `a` is the contiguous band and the solve is bare.
+template <int R, bool kFused>
+__global__ void __launch_bounds__(kThreads)
+banded_cholesky_kernel(const float* __restrict__ a, long long sa0, long long sa1, long long sa2,
+                       const float* __restrict__ rhs, float* __restrict__ out, int c) {
+  extern __shared__ __align__(16) float smem[];
+  PHASE(0);
+  const int lane = threadIdx.x;
+  const int sys = blockIdx.x;
+  const int r = lane < R ? lane : 0;
+
+  float* band = smem;           // band[i * 9 + d] = A[i, i - 4 + d]
+  float* l = band + kBand * c;  // l[i * 4 + d] = L[i, i - 4 + d], d = 0..3
+  float* inv = l + kHalf * c;   // 1 / L[i, i]
+  float* b = inv + c;
+  float* y = b + R * c;
+  float* x = y + R * c;
+  float* res = x + R * c;
+
+  if (kFused) {
+    const float* from = a + sys * sa0;
+    for (int e = lane; e < kBand * c; e += kThreads) {
+      const int i = e / kBand, col = i - kHalf + e % kBand;
+      if (col >= 0 && col < c) {
+        copy_async_4(band + e, from + i * sa1 + col * sa2);
+      } else {
+        band[e] = 0.0f;
+      }
+    }
+  } else {
+    stage(band, a + static_cast<size_t>(sys) * kBand * c, kBand * c, lane);
+  }
+  stage(b, rhs + static_cast<size_t>(sys) * R * c, R * c, lane);
+  PHASE(1);  // copies issued
+  copy_async_wait();
+  __syncwarp();
+  PHASE(2);  // copies arrived
+
+  factor_and_forward<R>(band, b, l, inv, y, c, lane, r);
+  __syncwarp();
+  PHASE(3);
+  if (lane < R) backward<R, false>(l, inv, y, x, c, lane);
+  PHASE(4);
+
+  if (kFused) {
+    __syncwarp();
+    for (int e = lane; e < c * R; e += kThreads) {
+      const int i = e / R, col_r = e % R;
+      float ax = 0.0f;
+#pragma unroll
+      for (int d = 0; d < kBand; ++d) {
+        const int col = i - kHalf + d;
+        if (col >= 0 && col < c) ax = __fadd_rn(ax, mul(band[i * kBand + d], x[col * R + col_r]));
+      }
+      res[e] = sub(b[e], ax);
+    }
+    __syncwarp();
+    PHASE(5);  // residual
+    if (lane < R) {
+      forward<R>(l, inv, res, y, c, lane);
+      PHASE(6);
+      backward<R, true>(l, inv, y, x, c, lane);
+      PHASE(7);
+    }
+  }
+  __syncwarp();
+
+  float* dst = out + static_cast<size_t>(sys) * R * c;
+  for (int e = lane; e < R * c; e += kThreads) dst[e] = x[e];
+  PHASE(8);
+}
+
+__global__ void empty_kernel() {}
+
+template <bool kFused>
+int launch(const float* a, long long sa0, long long sa1, long long sa2, const float* rhs, float* out,
+           int batch, int c, int r, cudaStream_t stream) {
+  if (batch <= 0) return 0;
+  if (c < 1 || c > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared = sizeof(float) * system_floats(c, r);
+  if (r == 1) {
+    banded_cholesky_kernel<1, kFused><<<batch, kThreads, shared, stream>>>(a, sa0, sa1, sa2, rhs, out, c);
+  } else if (r == 2) {
+    banded_cholesky_kernel<2, kFused><<<batch, kThreads, shared, stream>>>(a, sa0, sa1, sa2, rhs, out, c);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -123,10 +369,24 @@ int launch(const float* band, const float* rhs, float* out, int batch, cudaStrea
 
 extern "C" int banded_cholesky_solve_f32(const float* band, const float* rhs, float* out,
                                          int batch, int n_coef, int n_rhs, void* stream) {
-  if (batch <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_coef == 28 && n_rhs == 2) return launch<28, 2>(band, rhs, out, batch, s);
-  if (n_coef == 51 && n_rhs == 2) return launch<51, 2>(band, rhs, out, batch, s);
-  if (n_coef == 20 && n_rhs == 1) return launch<20, 1>(band, rhs, out, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(band, 0, 0, 0, rhs, out, batch, n_coef, n_rhs, static_cast<cudaStream_t>(stream));
 }
+
+extern "C" int banded_refined_solve_dense_f32(const float* a, long long stride_sys, long long stride_row,
+                                              long long stride_col, const float* rhs, float* out,
+                                              int batch, int n_coef, int n_rhs, void* stream) {
+  return launch<true>(a, stride_sys, stride_row, stride_col, rhs, out, batch, n_coef, n_rhs,
+                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int banded_empty_launch(int batch, void* stream) {
+  if (batch <= 0) return 0;
+  empty_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef B1_PHASE_CLOCKS
+extern "C" int banded_read_phase_clocks(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(long long) * 9));
+}
+#endif

@@ -12,23 +12,34 @@
 // searches in the lanes, reads the node table and gathers the survivors
 // through one-hot contractions, and chunks by 32 to bound VMEM. Here:
 //
-//   * one block per search, P threads, one per pool entry: threads 0..K-1
-//     are the frozen parents, thread K + j*K + k is the child of beam k over
-//     neighbour j (the pool order of the TPU kernel and of the port's scan,
-//     so ties on the score break identically);
+//   * one block per search, eight lanes per beam (four beams to a warp,
+//     8 K = 256 threads): lanes 0..C-1 of a group hold the beam's C children,
+//     lane C its frozen parent, the rest hold nothing. A beam's lanes load
+//     its table row themselves (__syncwarp), the any-over-C that freezes a
+//     beam is a __ballot_sync, and parents and children work in the same
+//     warps at the same time;
+//   * the pool index that breaks ties stays that of the TPU kernel and of the
+//     port's scan, whatever thread holds the entry: k for the parent of beam
+//     k, K + j*K + k for its child over neighbour j;
 //   * the tail's table row is indexed directly (a negative index reads an
 //     all-zero row, which is what the one-hot sum gives);
+//   * the exact top-K is a rank in O(P log P): (score, pool index) becomes
+//     one 64-bit key of the same order, each warp sorts its 32 keys with a
+//     bitonic network of shuffles and writes them to shared memory, and
+//     every entry adds up, over the eight sorted lists, the keys below its
+//     own (a five-step binary search each). Exactly one entry has each rank;
 //   * each thread keeps its pool entry's F features in registers; the entry
 //     whose rank is r < K writes itself to column r of the state in shared
-//     memory. Exactly one entry has each rank, so the scatter has no race.
+//     memory, so the scatter has no race;
+//   * two __syncthreads() per step: after the keys are written, after the
+//     survivors are scattered.
 //
 // Layout: node_table (G, N, 4C) = [idx | ok | x | y] per neighbour, feats
 // (G, F, K), alive (G, K), params (G, 6) = [car x, car y, dir x, dir y,
 // side sign, target length]; all float32, contiguous, any G >= 1, N at run
-// time. The state (F x K), the K table rows of the step, the P scores and
-// the K*C gate results live in shared memory (about 7 KB); the node table
-// stays in global memory and is read through the read-only path, one row per
-// beam per step.
+// time. The state (F x K), the K table rows of the step and the sorted keys
+// live in shared memory (about 8 KB); the node table stays in global memory
+// and is read through the read-only path, one row per beam per step.
 //
 // Arithmetic: this file is compiled with -fmad=false, so no product and sum
 // is contracted into an FMA, and every expression below is evaluated in the
@@ -43,13 +54,12 @@
 // (17.7 KB at N = 128) and needs about 0.79 Mflop: the gates, carries and
 // scores, and a comparison top-K of P log2 P compares. At G = 512 that is
 // 9.1 MB (2.7 us at 3.35 TB/s) against 0.41 Gflop (6.1 us at 67 TFLOP/s), so
-// operations bound it. The kernel does more than the function needs: its
-// O(P^2) rank is 4 P^2 = 147,456 operations per step, twice everything else
-// in the step, and is not part of the bound. What the design does about the
-// bound: nothing yet beyond one launch for all searches and state that
-// never leaves the SM between steps; each step is four __syncthreads()
-// phases. At G = 2 (one frame) the time is the latency of that serial chain.
-// A warp-level rank and several searches per block are left for later work.
+// operations bound it. What the design does about the bound: one launch for
+// all searches, state that never leaves the SM between steps, and a rank
+// whose work is of the order the bound counts (32 * 15 compare-exchanges a
+// warp and 40 probes an entry, where a pairwise rank reads all P scores in
+// every thread). At G = 2 (one frame) the time is the latency of the serial
+// chain of L - 1 steps. Several searches per block are left for later work.
 //
 // C interface: fused_beam_search_f32 returns cudaGetLastError() after the
 // launch (0 on success), or cudaErrorInvalidValue for a (K, L, C) that has
@@ -140,15 +150,57 @@ __device__ __forceinline__ float partial_score(const Consts& cs, float length, f
          cs.w6 * fabsf(wrong_sum) * (length >= 4.0f ? 1.0f : 0.0f);
 }
 
+// (score, pool index) as one 64-bit key that orders as the pair does: the
+// float's bits made monotone (negative values flipped, the sign bit set on the
+// others) above the index. -0.0 and +0.0 compare equal as floats, so both map
+// to the key of +0.0 and the index decides between them.
+__device__ __forceinline__ unsigned long long rank_key(float score, int pool_index) {
+  const unsigned int bits = __float_as_uint(score == 0.0f ? 0.0f : score);
+  const unsigned int ordered = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return (static_cast<unsigned long long>(ordered) << 32) | static_cast<unsigned int>(pool_index);
+}
+
+constexpr unsigned long long kNoEntry = ~0ull;  // key of a lane that holds no pool entry
+constexpr unsigned int kFullWarp = 0xffffffffu;
+constexpr int kGroup = 8;                    // lanes per beam: C children, the parent, the rest idle
+constexpr int kBeamsPerWarp = 32 / kGroup;
+
+// ascending bitonic sort of one key per lane across the warp
+__device__ __forceinline__ unsigned long long warp_sort(unsigned long long key, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(kFullWarp, key, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      key = (keep_min == (key < other)) ? key : other;
+    }
+  }
+  return key;
+}
+
+// number of keys below `key` in a sorted list of 32 whose last is kNoEntry
+__device__ __forceinline__ int count_below(const unsigned long long* sorted, unsigned long long key) {
+  int n = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    if (sorted[n + step - 1] < key) n += step;
+  }
+  return n;
+}
+
 template <int K, int L, int C>
-__global__ void __launch_bounds__(K + K * C)
+__global__ void __launch_bounds__(K * kGroup)
 beam_search_kernel(const float* __restrict__ table, const float* __restrict__ feats0,
                    const float* __restrict__ alive0, const float* __restrict__ params,
                    float* __restrict__ out_feats, float* __restrict__ out_alive, int n,
                    const Consts cs) {
   constexpr int F = L + 16;
-  constexpr int P = K + K * C;
+  constexpr int T = K * kGroup;  // threads
+  constexpr int W = T / 32;      // warps
   constexpr int R = 4 * C;
+  static_assert(C + 1 <= kGroup, "a beam's children and its parent share one group of lanes");
+  static_assert(K % kBeamsPerWarp == 0, "whole warps");
   // feature rows after the configs
   constexpr int LEN = L, DONE = L + 1, ANGLE = L + 2, UNDER = L + 3, RESID = L + 4, INIT = L + 5,
                 WRONG = L + 6, LAST_IDX = L + 7, LAST_X = L + 8, LAST_Y = L + 9, PREV_X = L + 10,
@@ -158,18 +210,24 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
   __shared__ float s_feats[F][K];
   __shared__ float s_alive[K];
   __shared__ float s_row[K][R + 1];  // one table row per beam, padded against bank conflicts
-  __shared__ float s_score[P];
-  __shared__ unsigned char s_can[C][K];
+  __shared__ unsigned long long s_keys[W][32];  // each warp's keys, sorted
 
   const int g = blockIdx.x;
   const int tid = threadIdx.x;
-  const bool is_parent = tid < K;
-  const int j = is_parent ? 0 : (tid - K) / K;   // neighbour slot of a child
-  const int kb = is_parent ? tid : (tid - K) % K;  // beam of this pool entry
+  const int warp = tid >> 5, lane = tid & 31;
+  const int slot = lane % kGroup;                         // 0..C-1 child over neighbour `slot`, C parent
+  const int kb = warp * kBeamsPerWarp + lane / kGroup;    // beam of this lane's group
+  const bool is_child = slot < C;
+  const bool is_parent = slot == C;
+  const int j = slot;
+  // the pool order of the plain version, whatever thread holds the entry:
+  // parents first, then the children neighbour-major
+  const int pool_index = is_parent ? kb : K + j * K + kb;
+  const unsigned int group_shift = (lane / kGroup) * kGroup;
 
   const float* tbl = table + static_cast<size_t>(g) * n * R;
   const float* f0 = feats0 + static_cast<size_t>(g) * F * K;
-  for (int i = tid; i < F * K; i += P) (&s_feats[0][0])[i] = f0[i];
+  for (int i = tid; i < F * K; i += T) (&s_feats[0][0])[i] = f0[i];
   if (tid < K) s_alive[tid] = alive0[static_cast<size_t>(g) * K + tid];
 
   const float* prm = params + static_cast<size_t>(g) * kParams;
@@ -186,16 +244,19 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
   __syncthreads();
 
   for (int step = 0; step < L - 1; ++step) {
-    // ---- phase 1: the node-table row of every beam's tail cone
-    for (int i = tid; i < K * R; i += P) {
-      const int b = i / R, col = i % R;
-      const int idx = __float2int_rn(s_feats[LAST_IDX][b]);
-      s_row[b][col] = (idx >= 0 && idx < n) ? __ldg(tbl + static_cast<size_t>(idx) * R + col) : 0.0f;
+    // ---- the node-table row of the beam's tail cone, loaded by the beam's
+    // own group of lanes
+    {
+      const int idx = __float2int_rn(s_feats[LAST_IDX][kb]);
+      const bool in_table = idx >= 0 && idx < n;
+      for (int col = slot; col < R; col += kGroup) {
+        s_row[kb][col] = in_table ? __ldg(tbl + static_cast<size_t>(idx) * R + col) : 0.0f;
+      }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // ---- phase 2: every thread reads its beam's state; children apply the
-    // gates and build their pool entry
+    // ---- every lane reads its beam's state; children apply the gates and
+    // build their pool entry
     float cfg[L];
 #pragma unroll
     for (int q = 0; q < L; ++q) cfg[q] = s_feats[q][kb];
@@ -212,8 +273,9 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
     const bool expandable = (s_alive[kb] > 0.5f) && !done && (lengths < target_len);
 
     float entry[F];  // this thread's pool entry
-    float score;
-    if (!is_parent) {
+    float score = kBig;
+    bool can = false;
+    if (is_child) {
       const float* row = s_row[kb];
       const float cand_idx = row[j];
       const bool can0 = row[C + j] > 0.5f;
@@ -223,7 +285,7 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
       bool in_cfg = false;
 #pragma unroll
       for (int q = 0; q < L; ++q) in_cfg = in_cfg || (cand_idx == cfg[q]);
-      bool can = can0 && !in_cfg;
+      can = can0 && !in_cfg;
 
       // gate 2: ellipse (p >= 1)
       float mjx = last_x - prev_x, mjy = last_y - prev_y;
@@ -284,7 +346,6 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
       can = can && !seg_intersect(last_x, last_y, cand_x, cand_y, cs_x, cs_y, ce_x, ce_y);
 
       can = can && expandable;
-      s_can[j][kb] = can ? 1 : 0;
 
       // carries of the extended config
       const float theta = angle_between(prev_x - last_x, prev_y - last_y, snx, sny);
@@ -320,14 +381,12 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
       entry[FIRST_X] = first_x;
       entry[FIRST_Y] = first_y;
     }
-    __syncthreads();
 
-    // ---- phase 3: parents freeze the beams that found no extension (an
-    // any-over-C across the child threads, through shared memory)
+    // ---- the parent freezes a beam that found no extension: the any-over-C
+    // is a ballot over the beam's own lanes
+    const unsigned int votes = __ballot_sync(kFullWarp, can);
     if (is_parent) {
-      bool any_can = false;
-#pragma unroll
-      for (int m = 0; m < C; ++m) any_can = any_can || (s_can[m][kb] != 0);
+      const bool any_can = ((votes >> group_shift) & ((1u << C) - 1u)) != 0u;
       const bool done2 = done || (expandable && !any_can);
       const bool frozen = (s_alive[kb] > 0.5f) && (done2 || !expandable);
       const float p_score =
@@ -353,40 +412,45 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
       entry[FIRST_X] = first_x;
       entry[FIRST_Y] = first_y;
     }
-    s_score[tid] = score;
-    __syncthreads();
 
-    // ---- phase 4: exact top-K. rank = #{q : (s_q, q) < (s_p, p)}; the
-    // entry of rank r < K becomes column r of the new state
-    int rank = 0;
-    for (int q = 0; q < P; ++q) {
-      const float sq = s_score[q];
-      rank += ((sq < score) || ((sq == score) && (q < tid))) ? 1 : 0;
-    }
-    if (rank < K) {
-      const bool valid = score < (float)0.5e30;
-      // invalid slots: configs -1, length 0, done 0, last_idx -1
+    // ---- exact top-K in O(P log P). Each warp sorts its keys; an entry's
+    // rank = #{q : (s_q, q) < (s_p, p)} is the sum over the warps of the
+    // keys below its own, found by binary search in each sorted list
+    const bool has_entry = is_child || is_parent;
+    const unsigned long long key = has_entry ? rank_key(score, pool_index) : kNoEntry;
+    s_keys[warp][lane] = warp_sort(key, lane);
+    __syncthreads();  // barrier 1 of 2: the keys are written, the old state is read
+
+    if (has_entry) {
+      int rank = 0;
 #pragma unroll
-      for (int q = 0; q < L; ++q) s_feats[q][rank] = valid ? entry[q] : -1.0f;
-      s_feats[LEN][rank] = valid ? entry[LEN] : 0.0f;
-      s_feats[DONE][rank] = valid ? entry[DONE] : 0.0f;
+      for (int w = 0; w < W; ++w) rank += count_below(s_keys[w], key);
+      // the entry of rank r < K becomes column r of the new state
+      if (rank < K) {
+        const bool valid = score < (float)0.5e30;
+        // invalid slots: configs -1, length 0, done 0, last_idx -1
 #pragma unroll
-      for (int q = ANGLE; q < F; ++q) s_feats[q][rank] = entry[q];
-      if (!valid) s_feats[LAST_IDX][rank] = -1.0f;
-      s_alive[rank] = valid ? 1.0f : 0.0f;
+        for (int q = 0; q < L; ++q) s_feats[q][rank] = valid ? entry[q] : -1.0f;
+        s_feats[LEN][rank] = valid ? entry[LEN] : 0.0f;
+        s_feats[DONE][rank] = valid ? entry[DONE] : 0.0f;
+#pragma unroll
+        for (int q = ANGLE; q < F; ++q) s_feats[q][rank] = entry[q];
+        if (!valid) s_feats[LAST_IDX][rank] = -1.0f;
+        s_alive[rank] = valid ? 1.0f : 0.0f;
+      }
     }
-    __syncthreads();
+    __syncthreads();  // barrier 2 of 2: the survivors are scattered
   }
 
   float* of = out_feats + static_cast<size_t>(g) * F * K;
-  for (int i = tid; i < F * K; i += P) of[i] = (&s_feats[0][0])[i];
+  for (int i = tid; i < F * K; i += T) of[i] = (&s_feats[0][0])[i];
   if (tid < K) out_alive[static_cast<size_t>(g) * K + tid] = s_alive[tid];
 }
 
 template <int K, int L, int C>
 int launch(const float* table, const float* feats0, const float* alive0, const float* params,
            float* out_feats, float* out_alive, int g, int n, const Consts& cs, cudaStream_t stream) {
-  beam_search_kernel<K, L, C><<<g, K + K * C, 0, stream>>>(table, feats0, alive0, params, out_feats,
+  beam_search_kernel<K, L, C><<<g, K * kGroup, 0, stream>>>(table, feats0, alive0, params, out_feats,
                                                             out_alive, n, cs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -414,7 +414,7 @@ def fused_beam_search_cuda(
     gates: dict,
 ) -> tuple[Tensor, Tensor]:
     """Launch the CUDA kernel on the current stream (no synchronisation):
-    one block per search."""
+    one block per search, eight lanes per beam."""
     global launch_count
     tensors = (node_table, feats0, alive0, params)
     if any(t.device.type != "cuda" or t.device != node_table.device for t in tensors):
@@ -479,9 +479,10 @@ def search_flops(n: int, k: int, l: int, c: int) -> int:
     carries and score of every child, the score of every parent, and an exact
     top-K of the pool by comparison (``P * ceil(log2 P)`` compares, a sort's
     worth). Arithmetic, comparisons and selects each count one; copying
-    feature rows is data movement and counts nothing. The kernel's own
-    O(P^2) rank is its choice of selection and is not counted here, so the
-    bound does not move when the kernel changes. Independent of ``n`` (a
+    feature rows is data movement and counts nothing. How the kernel selects
+    (it sorts 64-bit keys within each warp and searches the sorted lists) is
+    its own choice and is not counted here, so the bound does not move when
+    the kernel changes. Independent of ``n`` (a
     tail's table row is indexed, not searched) and of the data (no early
     exit)."""
     del n

@@ -2,10 +2,12 @@
 
 Counterpart of `ft_fsd_path_planning_tpu/ops/spline.py`. Every solve of the
 FITPACK engine goes through :func:`_solve_spd_banded`: the band of the matrix
-is solved by kernel B1 (`ops/banded_cholesky.py`; the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors), followed by one round of
+is solved by kernel B1 (`ops/banded_cholesky.py`), followed by one round of
 iterative refinement. That is the arithmetic the JAX package runs on the
-TPU; on the CPU the JAX package uses a dense Cholesky instead.
+TPU; on the CPU the JAX package uses a dense Cholesky instead. On a CUDA
+tensor the whole refined solve is one launch of the kernel's fused entry,
+which reads the band out of the dense matrix itself; on a CPU tensor it is
+the plain composition :func:`_banded_solve` of the band helpers.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from ft_fsd_path_planning_torch.ops.banded_cholesky import (
     BW,
     band_matvec,
     banded_cholesky_solve,
+    banded_refined_solve_cuda,
     dense_to_band,
 )
 
@@ -25,7 +28,8 @@ Tensor = torch.Tensor
 def _banded_solve(band: Tensor, rhs: Tensor) -> Tensor:
     """Solve the SPD banded systems (G, C, 9) @ x = (G, C, R) with one round
     of iterative refinement (without it, FITPACK's SSR-vs-budget decisions
-    wobble enough to flip knot selection)."""
+    wobble enough to flip knot selection), as a composition of the bare
+    solve: two solves, a band product, a difference and a sum."""
     x = banded_cholesky_solve(band, rhs)
     resid = rhs - band_matvec(band, x)
     return x + banded_cholesky_solve(band, resid)
@@ -34,8 +38,11 @@ def _banded_solve(band: Tensor, rhs: Tensor) -> Tensor:
 def _solve_spd_banded(a: Tensor, b: Tensor) -> Tensor:
     """Solve SPD systems with half-bandwidth <= 4: a (..., C, C), b (..., C, R)."""
     c, r = a.shape[-1], b.shape[-1]
-    band = dense_to_band(a).reshape(-1, c, BW).contiguous()
-    x = _banded_solve(band, b.reshape(-1, c, r).contiguous())
+    rhs = b.reshape(-1, c, r).contiguous()
+    if a.device.type == "cpu":
+        x = _banded_solve(dense_to_band(a).reshape(-1, c, BW).contiguous(), rhs)
+    else:
+        x = banded_refined_solve_cuda(a.reshape(-1, c, c), rhs)
     return x.reshape(b.shape)
 
 

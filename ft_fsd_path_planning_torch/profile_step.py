@@ -1,13 +1,15 @@
 """Where the time of one batched planner step goes on the card.
 
-    python -m ft_fsd_path_planning_torch.profile_step [--batch 256] [--n-cones 128]
+    python -m ft_fsd_path_planning_torch.profile_step [--batch 256] [--n-cones 128] [--composition]
 
 Runs ``batched_step`` on perturbed corridors (seed 0) after a warm-up and
 prints, as one JSON line: the step's wall time; the wall time of each stage
 (sorting with kernel B2 inside it, or the sorter's scan under
 ``FT_FSD_FUSED_BEAM=0``; matching; path calculation, the FITPACK fits inside
-it and kernel B1), each measured with a synchronise before and after, so the
-stages do not overlap; and, from ``torch.profiler``, the device time summed over all
+it and kernel B1's refined solve, one launch of its fused entry; with
+``--composition`` the composition of two bare solves and the band helpers
+that the fused entry replaces), each measured with a synchronise before and
+after, so the stages do not overlap; and, from ``torch.profiler``, the device time summed over all
 kernels, the share of the step the device was idle, and the heaviest
 kernels by device time. Needs a CUDA device.
 """
@@ -50,7 +52,7 @@ def stage_times(cfg, state, frames) -> dict:
         (planner.matching, "run_cone_matching", "matching"),
         (planner.pathing, "run_path_calculation", "path_calculation"),
         (planner.pathing.fpk, "fitpack_fit", "fitpack_fit (inside path_calculation)"),
-        (spline, "banded_cholesky_solve", "B1 banded solve (inside fitpack_fit)"),
+        (spline, "banded_refined_solve_cuda", "B1 refined solve (inside fitpack_fit)"),
     ]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, name in patches:
@@ -97,9 +99,17 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--n-cones", type=int, default=128)
     parser.add_argument("--top", type=int, default=12)
+    parser.add_argument(
+        "--composition", action="store_true",
+        help="refine through two launches of B1's bare entry and the band helpers, not through its fused entry",
+    )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
+    if args.composition:
+        spline.banded_refined_solve_cuda = lambda a, rhs: spline._banded_solve(
+            banded_cholesky.dense_to_band(a).contiguous(), rhs
+        )
 
     cfg = default_config(n_cones=args.n_cones)
     state = batch.make_batch_state(cfg, args.batch)
@@ -127,6 +137,7 @@ def main() -> None:
         "step_ms": step_ms,
         "stage_ms": stages,
         "sorter_search": "B2" if planner.sorting._use_fused_beam(frames.cones.device) else "scan",
+        "refined_solve": "composition of bare solves" if args.composition else "fused entry",
         "b1_launches": banded_cholesky.launch_count,
         "b2_launches": beam_search.launch_count,
         "fitpack_loop_syncs": fitpack.loop_syncs,

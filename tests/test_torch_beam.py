@@ -14,7 +14,12 @@ frames for the sorter. Tolerances:
   tests/test_fused_beam.py holds the Pallas kernel's to, and with the Pallas
   kernel's own to 1e-6;
 * sorted cones agree to 1e-5 m and masks exactly, as tests/test_fused_beam.py
-  holds the Pallas kernel to the XLA scan.
+  holds the Pallas kernel to the XLA scan;
+* a numpy model of the CUDA kernel's rank (its thread-to-pool-entry map, its
+  64-bit key, the per-warp bitonic sort and the binary search in every
+  warp's sorted list, as csrc/beam_search.cu writes them) gives exactly the
+  pairwise rank of the plain version, ties, signed zeros and negative scores
+  included.
 """
 
 import numpy as np
@@ -188,10 +193,142 @@ def test_cost_counters():
     assert tbs.search_bytes(512, 128, K, L, C) == 512 * one
     # the table row is indexed, not searched: N does not change the work
     assert tbs.search_flops(128, K, L, C) == tbs.search_flops(256, K, L, C)
-    # the bound counts a comparison top-K, not the kernel's O(P^2) rank: the
+    # the bound counts a comparison top-K, not an O(P^2) pairwise rank: the
     # children's gates dominate, and the whole stays below one pairwise rank
     pool = tbs.pool_size(K, C)
     steps = L - 1
     assert tbs.search_flops(128, K, L, C) > steps * K * C * 300
     assert tbs.search_flops(128, K, L, C) < steps * 4 * pool * pool
     assert tbs.search_flops(128, K, L, C) == steps * (K * C * 428 + K * 68 + pool * 8)
+
+
+# --- the CUDA kernel's rank, modelled in numpy (csrc/beam_search.cu) -------
+
+GROUP = 8  # lanes per beam: C children, the parent, the rest hold nothing
+NO_ENTRY = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _thread_pool_index(tid: int) -> int | None:
+    """Pool index of the entry thread ``tid`` holds, as the kernel maps it."""
+    warp, lane = divmod(tid, 32)
+    slot = lane % GROUP
+    beam = warp * (32 // GROUP) + lane // GROUP
+    if slot < C:
+        return K + slot * K + beam
+    return beam if slot == C else None
+
+
+def _rank_key(score: np.float32, pool_index: int) -> np.uint64:
+    score = np.float32(0.0) if score == 0.0 else np.float32(score)  # -0.0 -> +0.0
+    bits = int(np.array(score, np.float32).view(np.uint32))
+    ordered = (~bits & 0xFFFFFFFF) if bits & 0x80000000 else bits | 0x80000000
+    return np.uint64((ordered << 32) | pool_index)
+
+
+def _warp_sort(keys: np.ndarray) -> np.ndarray:
+    """The kernel's bitonic network: 32 keys, one a lane, exchanged by xor-shuffles."""
+    keys = keys.copy()
+    lanes = np.arange(32)
+    k = 2
+    while k <= 32:
+        j = k >> 1
+        while j > 0:
+            other = keys[lanes ^ j]
+            keep_min = ((lanes & j) == 0) == ((lanes & k) == 0)
+            keys = np.where(keep_min == (keys < other), keys, other)
+            j >>= 1
+        k <<= 1
+    return keys
+
+
+def _count_below(sorted_keys: np.ndarray, key: np.uint64) -> int:
+    n, step = 0, 16
+    while step > 0:
+        if sorted_keys[n + step - 1] < key:
+            n += step
+        step >>= 1
+    return n
+
+
+def _kernel_rank(scores: np.ndarray) -> np.ndarray:
+    """rank[p] of every pool entry p as the kernel finds it."""
+    threads = K * GROUP
+    keys = np.full(threads, NO_ENTRY, np.uint64)
+    for tid in range(threads):
+        p = _thread_pool_index(tid)
+        if p is not None:
+            keys[tid] = _rank_key(scores[p], p)
+    lists = [_warp_sort(keys[w * 32 : (w + 1) * 32]) for w in range(threads // 32)]
+    for srt in lists:
+        assert (np.diff(srt.astype(object)) >= 0).all() and srt[-1] == NO_ENTRY
+    rank = np.empty(K + K * C, np.int64)
+    for tid in range(threads):
+        p = _thread_pool_index(tid)
+        if p is not None:
+            rank[p] = sum(_count_below(srt, keys[tid]) for srt in lists)
+    return rank
+
+
+def _pairwise_rank(scores: np.ndarray) -> np.ndarray:
+    """The plain version's rank: #{q : (s_q, q) < (s_p, p)}."""
+    idx = np.arange(len(scores))
+    s_p, s_q = scores[:, None], scores[None, :]
+    return np.sum((s_q < s_p) | ((s_q == s_p) & (idx[None, :] < idx[:, None])), axis=1)
+
+
+def test_thread_map_is_a_bijection_onto_the_pool_order():
+    held = [_thread_pool_index(t) for t in range(K * GROUP)]
+    entries = [p for p in held if p is not None]
+    assert sorted(entries) == list(range(K + K * C))  # every pool entry once
+    assert held.count(None) == K * (GROUP - C - 1)
+    for tid, p in enumerate(held):
+        if p is None:
+            continue
+        warp, lane = divmod(tid, 32)
+        beam, slot = warp * 4 + lane // GROUP, lane % GROUP
+        # parents first, then the children neighbour-major: the plain version's `jm`
+        assert p == (beam if slot == C else K + slot * K + beam)
+        # a beam's children and its parent share one aligned group of lanes of one warp
+        assert lane // GROUP == (lane - slot) // GROUP and slot <= C
+
+
+def _rank_cases():
+    rng = np.random.default_rng(7)
+    pool = K + K * C
+    big = np.float32(tbs.BIG)
+    cases = {}
+    # what a step looks like: most entries tie on BIG, a few real scores
+    s = np.full(pool, big, np.float32)
+    live = rng.choice(pool, 20, replace=False)
+    s[live] = rng.uniform(0.0, 5.0, 20).astype(np.float32)
+    cases["mostly BIG"] = s
+    cases["all BIG"] = np.full(pool, big, np.float32)
+    # signed zeros tie as floats and must not be split by their bit patterns
+    s = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), pool)
+    cases["signed zeros"] = s
+    s = rng.normal(0.0, 3.0, pool).astype(np.float32)
+    s[rng.choice(pool, 60, replace=False)] = big
+    s[rng.choice(pool, 30, replace=False)] = np.float32(-2.5)  # negative ties
+    cases["negatives and ties"] = s
+    cases["all distinct"] = rng.permutation(pool).astype(np.float32) - 100.0
+    s = np.array([1e-45, -1e-45, 0.0, -0.0, 3e38, -3e38], np.float32)  # denormals, extremes
+    cases["denormals and extremes"] = np.resize(s, pool)
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_rank_cases()))
+def test_kernel_rank_model_matches_pairwise_rank(name):
+    scores = _rank_cases()[name]
+    rank = _kernel_rank(scores)
+    assert sorted(rank) == list(range(len(scores)))  # exactly one entry has each rank
+    np.testing.assert_array_equal(rank, _pairwise_rank(scores))
+
+
+def test_rank_key_orders_as_score_then_index():
+    vals = np.array([-3e38, -2.5, -1e-45, -0.0, 0.0, 1e-45, 2.5, 1e30, 3e38], np.float32)
+    for a in vals:
+        for b in vals:
+            for ia, ib in ((3, 7), (7, 3)):
+                want = (a < b) or (a == b and ia < ib)
+                assert (_rank_key(a, ia) < _rank_key(b, ib)) == want, (a, b, ia, ib)
+    assert _rank_key(np.float32(3e38), K + K * C - 1) < NO_ENTRY

@@ -12,10 +12,22 @@ drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
 of bare solves it replaces; with B2 and with the sorter's scan), then the
 committed 300-frame session through ``PathPlanner`` without and with the
-sorting cache and through ``replay_scan``. ``--kernels-only`` stops after
-the kernels' own phases. It checks the paths against the reference planner's golden
-paths, and prints one JSON line of kernel measurements and, last, one JSON
-line with the device. Any failed phase ends the run with a non-zero exit
+sorting cache and (its first 100 frames) through ``replay_scan``. B1's two
+entries are also held against their plain versions on the systems the
+relocalizer missions and the global-path branch give them (B = 256 and
+B = 1, up to 704 input points and 1,024 dense samples, and the hairpin
+frames on which a float32 factorization breaks down: the same inf and NaN
+as the plain version). Then the relocalizer missions: the seeded skidpad
+(full and partial view), acceleration and EBS sessions through
+``PathPlanner`` against the JAX package's golden paths (on the frames where
+that package falls back to its previous path, against its paths with a
+float64 solver), ``batched_step`` at B = 256 on skidpad and on
+acceleration frames each under its own SE(2) against the same batch on the
+CPU, and trackdrive with a global path set and unset against the CPU.
+``--kernels-only`` stops after the kernels' own phases. It checks the
+trackdrive paths against the reference planner's golden paths, and prints
+one JSON line of kernel measurements and, last, one JSON line with the
+device. Any failed phase ends the run with a non-zero exit
 code and no result line. Without a CUDA device it exits non-zero at once.
 """
 
@@ -38,6 +50,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SESSION = ROOT / "ft_fsd_path_planning_tpu/demo/closed_track_session.json"
 GOLDEN = ROOT / "ft_fsd_path_planning_tpu/demo/trackdrive_golden.npz"
+MISSIONS_GOLDEN = ROOT / "ft_fsd_path_planning_torch/assets/missions_golden.npz"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 outside
 # the tensor cores, the rate of the kernel's scalar arithmetic
@@ -55,6 +68,16 @@ FUSED_LATERAL_TOL = 0.0  # fused entry vs the composition of bare solves it repl
 AB_ROUNDS = 15  # steps of each kind when two versions of batched_step are timed in turns
 SIMILAR_THRESHOLD = 0.1  # the sort cache's cone-distance threshold, metres
 GOLDEN_MAX, GOLDEN_MEDIAN = 0.05, 0.01  # replay vs the reference planner, metres
+REPLAY_SCAN_FRAMES = 100  # session frames replay_scan repeats (the facade replays all 300)
+MISSION_ROT_TOL, MISSION_TRANS_TOL = 1e-4, 1e-3  # relocalization_info vs the JAX package's, rad and metres
+# a batch lane's rotation vs the SE(2) its frame was generated under, rad:
+# what 0.02 m of cone noise leaves of it (skidpad: two median centres 18 m
+# apart from as few as three circles; acceleration: a line through a row)
+BATCH_ROT_TOL = {"skidpad": 2e-2, "acceleration": 1e-3}
+TIME_LIMIT_S = 1200  # what the whole run, the kernels' build included, must stay inside
+START = time.perf_counter()
+BROKEN_FACTORIZATION_FRAMES = (20, 22)  # acceleration session frames whose hairpin fit breaks a float32 factorization down
+BATCH_ROT_32_64_TOL = 1e-3  # the float32 step's rotation vs the same attempt in float64 on the same lane, rad
 
 
 def log(*args) -> None:
@@ -120,15 +143,20 @@ def reset_counts() -> None:
     bs.reset_launch_count()
 
 
-def read_counts(path: str) -> dict:
-    """Launches of both kernels since reset_counts(); every kernel must have
-    been launched by the path just driven."""
+def read_counts(path: str, sorts: bool = True) -> dict:
+    """Launches of both kernels since reset_counts(); every kernel of the
+    path just driven must have been launched by it. A relocalizer mission
+    does not sort (``sorts=False``): B2 is no kernel of that path and must
+    not have been launched."""
     from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
     from ft_fsd_path_planning_torch.ops import beam_search as bs
 
     counts = {"B1": bc.launch_count, "B2": bs.launch_count}
-    for name, n in counts.items():
-        check(n > 0, f"{path} did not launch {name}")
+    check(counts["B1"] > 0, f"{path} did not launch B1")
+    if sorts:
+        check(counts["B2"] > 0, f"{path} did not launch B2")
+    else:
+        check(counts["B2"] == 0, f"{path} launched B2 {counts['B2']} times, and a relocalizer mission does not sort")
     check(bc.launch_count == bc.bare_launch_count + bc.refined_launch_count, "B1's counts do not add up")
     counts["B1 fused entry"] = bc.refined_launch_count
     counts["B1 bare entry"] = bc.bare_launch_count
@@ -201,11 +229,10 @@ def phase_build() -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def capture_main_path_solves(cfg, dev) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """Run one batched step and keep the (dense matrix, rhs) of every refined
-    solve the spline engine asks for, in call order."""
+def capture_refined_solves(run) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Call ``run()`` and keep the (dense matrix, rhs) of every refined solve
+    the spline engine asks for meanwhile, in call order."""
     from ft_fsd_path_planning_torch.ops import spline
-    from ft_fsd_path_planning_torch.parallel import batch, scenarios
 
     seen: list[tuple[torch.Tensor, torch.Tensor]] = []
     original = spline.banded_refined_solve_cuda
@@ -216,10 +243,19 @@ def capture_main_path_solves(cfg, dev) -> list[tuple[torch.Tensor, torch.Tensor]
 
     spline.banded_refined_solve_cuda = recording
     try:
-        batch.batched_step(cfg, batch.make_batch_state(cfg, BATCH, dev), scenarios.make_frame_batch(cfg, BATCH, seed=1, device=dev))
+        run()
         torch.cuda.synchronize()
     finally:
         spline.banded_refined_solve_cuda = original
+    return seen
+
+
+def capture_main_path_solves(cfg, dev) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The refined solves of one trackdrive batched step."""
+    from ft_fsd_path_planning_torch.parallel import batch, scenarios
+
+    frames = scenarios.make_frame_batch(cfg, BATCH, seed=1, device=dev)
+    seen = capture_refined_solves(lambda: batch.batched_step(cfg, batch.make_batch_state(cfg, BATCH, dev), frames))
     log(f"main-path refined solves, shapes (B, C, R): {dict(Counter(tuple(rhs.shape) for _, rhs in seen))}")
     check(bool(seen), "the batched step never reached the banded solve")
     return seen
@@ -347,6 +383,141 @@ def phase_b1_vs_plain(cfg, dev) -> list[dict]:
     rows[1]["composition_ms"] = composition_graph_ms
     rows[1]["one_by_one_composition_ms"] = composition_ms
     return rows
+
+
+def same_values(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
+    """(max |got - want| over the entries finite in both, whether the two
+    hold NaN, +inf and -inf at the same entries)."""
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want)[finite].abs().max()) if bool(finite.any()) else 0.0
+    same = bool(
+        torch.equal(torch.isnan(got), torch.isnan(want))
+        and torch.equal(torch.isposinf(got), torch.isposinf(want))
+        and torch.equal(torch.isneginf(got), torch.isneginf(want))
+    )
+    return err, same
+
+
+def broken_cpu_solves(mission, cfg, frames, picks) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Drive frame 0 and the frames ``picks`` through PathPlanner on the CPU
+    and keep the (dense matrix, rhs) of every solve of the spline engine
+    whose result is not finite."""
+    from ft_fsd_path_planning_torch import PathPlanner
+    from ft_fsd_path_planning_torch.ops import fitpack
+
+    seen: list[tuple[torch.Tensor, torch.Tensor]] = []
+    original = fitpack._solve_spd_banded
+
+    def recording(a, rhs):
+        x = original(a, rhs)
+        if not bool(torch.isfinite(x).all()):
+            seen.append((a.clone(), rhs.clone()))
+        return x
+
+    planner = PathPlanner(mission, config=cfg, device="cpu")
+    fitpack._solve_spd_banded = recording
+    try:
+        for i in (0,) + tuple(picks):
+            planner.calculate_path_in_global_frame(*frames[i])
+    finally:
+        fitpack._solve_spd_banded = original
+    return seen
+
+
+def phase_b1_vs_plain_missions(dev) -> None:
+    """Both entries of B1 against their plain versions on the systems the
+    relocalizer missions and the global-path branch hand the spline engine:
+    a skidpad and an acceleration batched step at B = 256 from a fresh
+    state; single frames at B = 1 through PathPlanner (two skidpad frames,
+    acceleration frames 0, 20 and 22, a trackdrive frame with a global path
+    set); every solve of the acceleration session that is not finite on the
+    card. On the hairpin of that session a float32 factorization can break
+    down (a pivot cancels to <= 0, the solve overflows to inf and NaN) and
+    the p-iteration's retry depends on the kernel being non-finite exactly
+    where the plain version is. Whether a given frame breaks depends on the
+    last bits of the assembled matrix, so three more sets make sure of it:
+    the systems that break on the host's CPU on frames 20 and 22, and
+    synthetic band systems with a negative pivot. Equal on the finite
+    entries, and NaN, +inf and -inf at the same entries."""
+    from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
+    from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    from ft_fsd_path_planning_torch.parallel import batch, scenarios
+
+    def config(mission):
+        return default_config(mission, n_cones=N_CONES)
+
+    cases: list[tuple[str, list, bool]] = []  # (label, solves, must hold a non-finite solve)
+    for mission_name in ("skidpad", "acceleration"):
+        cfg = config(getattr(MissionTypes, mission_name))
+        frames, _ = scenarios.mission_frame_batch(cfg, BATCH, seed=0, device=dev)
+        state = batch.make_batch_state(cfg, BATCH, dev)
+        cases.append((f"{mission_name} batched_step B={BATCH}", capture_refined_solves(lambda: batch.batched_step(cfg, state, frames)), False))
+
+    sessions = scenarios.mission_sessions()
+    frames = sessions["skidpad"][1]
+    planner = PathPlanner(MissionTypes.skidpad, config=config(MissionTypes.skidpad), device=dev)
+    for i in (0, 1):
+        cases.append((f"skidpad frame {i} B=1", capture_refined_solves(lambda: planner.calculate_path_in_global_frame(*frames[i])), False))
+
+    frames = sessions["acceleration"][1]
+    accel = MissionTypes.acceleration
+    planner = PathPlanner(accel, config=config(accel), device=dev)
+    broke_on_card, broken_frames = [], []
+    for i in range(len(frames)):
+        solves = capture_refined_solves(lambda: planner.calculate_path_in_global_frame(*frames[i]))
+        check(bool(solves), f"acceleration frame {i} never reached the banded solve")
+        flags = torch.stack([~torch.isfinite(bc.banded_refined_solve_cuda(a, rhs)).all() for a, rhs in solves]).tolist()
+        if any(flags):
+            broken_frames.append(i)
+        if i in (0,) + BROKEN_FACTORIZATION_FRAMES:
+            cases.append((f"acceleration frame {i} B=1", solves, False))
+        else:
+            broke_on_card += [solve for solve, flag in zip(solves, flags) if flag]
+    log(f"acceleration session on the card: frames with a solve that is not finite {broken_frames}")
+    if broke_on_card:
+        cases.append(("the other acceleration frames' solves that are not finite on the card", broke_on_card, True))
+
+    planner = PathPlanner(MissionTypes.trackdrive, config=config(MissionTypes.trackdrive), device=dev)
+    planner.set_global_path(scenarios.global_path_circle())
+    frame = scenarios.corridor_session(1)[0]
+    cases.append(("trackdrive frame with the global path set B=1", capture_refined_solves(lambda: planner.calculate_path_in_global_frame(*frame)), False))
+
+    on_cpu = broken_cpu_solves(accel, config(accel), frames, BROKEN_FACTORIZATION_FRAMES)
+    log(f"acceleration frames {BROKEN_FACTORIZATION_FRAMES} on the host's CPU: {len(on_cpu)} solves that are not finite")
+    if on_cpu:
+        cases.append(("the solves of those frames that are not finite on the CPU, on the card", [(a.to(dev), rhs.to(dev)) for a, rhs in on_cpu], False))
+    # SPD band systems with one diagonal entry lowered until its pivot is negative
+    rng = np.random.default_rng(2)
+    synthetic = []
+    for shape, row in (((256, 28, 2), 9), ((7, 51, 2), 0), ((3, 20, 1), 17)):
+        dense, rhs = spd_band_systems(rng, *shape, dev)
+        dense[:, row, row] -= 2.0 * dense[:, row, row].abs()
+        synthetic.append((dense, rhs))
+    cases.append(("synthetic systems with a negative pivot", synthetic, True))
+
+    for label, solves, must_break in cases:
+        check(bool(solves), f"{label} never reached the banded solve")
+        bare_err = fused_err = 0.0
+        broken = 0
+        for i, (dense, rhs) in enumerate(solves):
+            band = bc.dense_to_band(dense).contiguous()
+            got_bare = bc.banded_cholesky_solve_cuda(band, rhs)
+            got_fused = bc.banded_refined_solve_cuda(dense, rhs)
+            torch.cuda.synchronize()
+            e_bare, same_bare = same_values(got_bare, bc.banded_cholesky_solve_plain(band, rhs))
+            e_fused, same_fused = same_values(got_fused, bc.banded_refined_solve_plain(dense, rhs))
+            check(same_bare and same_fused, f"B1 and its plain version are non-finite at different entries ({label}, solve {i})")
+            check(e_bare <= B1_EXACT_TOL, f"B1's bare entry disagrees with its plain version ({label}, solve {i}): {e_bare}")
+            check(e_fused <= B1_EXACT_TOL, f"B1's fused entry disagrees with its plain version ({label}, solve {i}): {e_fused}")
+            bare_err, fused_err = max(bare_err, e_bare), max(fused_err, e_fused)
+            broken += int((~torch.isfinite(got_fused)).flatten(1).any(dim=1).sum())
+        log(
+            f"B1 on the {len(solves)} refined solves of {label}, shapes (B, C, R) {dict(Counter(tuple(rhs.shape) for _, rhs in solves))}: "
+            f"max|kernel - plain| on the finite entries bare {bare_err!r}, fused {fused_err!r}; non-finite entries the same; "
+            f"systems whose fused solve is not finite {broken}"
+        )
+        check(broken > 0 or not must_break, f"{label}: every solve is finite, so the non-finite entries were not compared")
 
 
 def capture_searches(run) -> tuple[tuple, dict]:
@@ -747,6 +918,7 @@ def phase_replay(cfg, dev) -> dict:
     check(cached.sort_cache_hits / len(args) > 0.2, "the sort cache did not engage")
     check(cached_launches["B2"] + cached.sort_cache_hits == len(args), "a cache miss did not launch B2 once")
 
+    args = args[:REPLAY_SCAN_FRAMES]
     flat = [flatten_cones_by_type(a[0], cfg.shapes.n_cones) for a in args]
     frames = FrameInput(
         cones=torch.tensor(np.stack([f[0] for f in flat])[:, None], device=dev),
@@ -758,10 +930,257 @@ def phase_replay(cfg, dev) -> dict:
     _, scan_paths = batch.replay_scan(cfg, make_initial_state(cfg, 1, dev), frames)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
-    diff = lateral(scan_paths[:, 0], torch.tensor(paths, device=dev))
+    diff = lateral(scan_paths[:, 0], torch.tensor(paths[: len(args)], device=dev))
     log(f"replay_scan {len(args)} frames in {scan_s!r} s: max lateral vs PathPlanner {float(diff.max())!r} m")
     check(float(diff.max()) < 1e-3, "replay_scan and PathPlanner disagree")
     return {"replay": launches, "cached_replay": cached_launches}
+
+
+def timed(phase, *args):
+    """Run one phase of the main path and log the wall time it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"{phase.__name__}: {time.perf_counter() - t0!r} s")
+    return out
+
+
+def percentiles(ms: list[float]) -> str:
+    if not ms:
+        return "none"
+    return f"p50 {float(np.percentile(ms, 50))!r} ms, p99 {float(np.percentile(ms, 99))!r} ms over {len(ms)} frames"
+
+
+@contextlib.contextmanager
+def recorded_path_ok():
+    """Record ``path_ok`` of every step PathPlanner makes inside the block
+    (as tensors on the device: no sync is added to the frame)."""
+    from ft_fsd_path_planning_torch.models import facade
+
+    oks: list[torch.Tensor] = []
+    original = facade.planner_step
+
+    def recording(*args, **kwargs):
+        out, state = original(*args, **kwargs)
+        oks.append(out.path_ok[0])
+        return out, state
+
+    facade.planner_step = recording
+    try:
+        yield oks
+    finally:
+        facade.planner_step = original
+
+
+def phase_mission_replay(dev) -> dict:
+    """The seeded mission sessions (skidpad with the full and the partial
+    view, acceleration, EBS test) through PathPlanner on the card, against
+    the JAX package's golden file: the same frame of first relocalization,
+    relocalization_info, per-frame lateral deviation, the same frames solved
+    afresh (``path_ok``). On a frame where the JAX package fell back to its
+    previous path the port is held against the JAX package run with a
+    float64 solver, which does not fall back there (the golden tool stores
+    both). Returns per session both kernels' launches."""
+    from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
+    from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    from ft_fsd_path_planning_torch.parallel import scenarios
+
+    golden = np.load(MISSIONS_GOLDEN)
+    launches = {}
+    for name, (mission_name, frames) in scenarios.mission_sessions().items():
+        mission = getattr(MissionTypes, mission_name)
+        cfg = default_config(mission, n_cones=N_CONES)
+        warm = PathPlanner(mission, config=cfg, device=dev)
+        warm.calculate_path_in_global_frame(*frames[0])  # warm-up: allocator, the relocalizers' tables
+
+        planner = PathPlanner(mission, config=cfg, device=dev)
+        reset_counts()
+        paths, lat_ms, b1_frame, first = [], [], [], -1
+        with recorded_path_ok() as oks:
+            for i, a in enumerate(frames):
+                before = bc.launch_count
+                t0 = time.perf_counter()
+                paths.append(planner.calculate_path_in_global_frame(*a))
+                lat_ms.append((time.perf_counter() - t0) * 1e3)
+                b1_frame.append(bc.launch_count - before)
+                if first < 0 and planner.relocalization_info is not None:
+                    first = i
+        counts = read_counts(f"{name} replay", sorts=False)
+        paths, path_ok = np.stack(paths), torch.stack(oks).cpu().numpy()
+        want, want_ok = golden[f"{name}/paths"][: len(frames)].copy(), golden[f"{name}/path_ok"][: len(frames)].copy()
+        theirs_fell_back = np.nonzero(~want_ok)[0]
+        if len(theirs_fell_back):
+            want[theirs_fell_back] = golden[f"{name}/paths_float64_solver"][theirs_fell_back]
+            want_ok[theirs_fell_back] = golden[f"{name}/path_ok_float64_solver"][theirs_fell_back]
+        check(paths.shape == want.shape and np.isfinite(paths).all(), f"bad mission paths ({name})")
+        check(min(b1_frame) > 0, f"a {name} frame launched B1 no time")
+        info = planner.relocalization_info
+        check(info is not None, f"{name} never relocalized")
+        rot_err = abs(info.rotation - float(golden[f"{name}/rotation"]))
+        trans_err = float(np.abs(info.translation - golden[f"{name}/translation"]).max())
+        devs = lateral(torch.tensor(paths), torch.tensor(want)).numpy()
+        if len(theirs_fell_back):
+            log(
+                f"mission replay {name}: the JAX package fell back to its previous path on frames {theirs_fell_back.tolist()}; there the port is "
+                f"held against the JAX package with a float64 solver: lateral {[float(devs[i]) for i in theirs_fell_back]!r} m, "
+                f"path_ok there {want_ok[theirs_fell_back].tolist()}, the port's {path_ok[theirs_fell_back].tolist()}"
+            )
+        ours_fell_back = np.nonzero(~path_ok)[0].tolist()
+        check(np.array_equal(path_ok, want_ok), f"{name}: the port fell back to its previous path on {ours_fell_back}, the golden file on {np.nonzero(~want_ok)[0].tolist()}")
+        log(
+            f"mission replay {name} ({mission_name}, n_cones {N_CONES}) {len(frames)} frames: first relocalized at frame {first} "
+            f"(JAX package {int(golden[f'{name}/first_relocalized'])}), rotation {info.rotation!r} (off by {rot_err!r} rad), "
+            f"translation {info.translation.tolist()} (off by {trans_err!r} m); lateral vs the JAX package's paths max "
+            f"{float(devs.max())!r} m (frame {int(devs.argmax())}), median {float(np.median(devs))!r} m"
+        )
+        log(
+            f"mission replay {name}: latency before relocalization {percentiles(lat_ms[:first])}; after {percentiles(lat_ms[first + 1:])}; "
+            f"the relocalization frame with its float64 refinement {lat_ms[first]!r} ms; B1 launches a frame median "
+            f"{int(np.median(b1_frame))} min {min(b1_frame)} max {max(b1_frame)} (relocalization frame {b1_frame[first]}), "
+            f"all {counts['B1']}, through the fused entry {counts['B1 fused entry']}; B2 launches {counts['B2']}"
+        )
+        check(first == int(golden[f"{name}/first_relocalized"]), f"{name} relocalized on another frame than the JAX package")
+        check(rot_err < MISSION_ROT_TOL, f"{name}: relocalization rotation off by {rot_err}")
+        check(trans_err < MISSION_TRANS_TOL, f"{name}: relocalization translation off by {trans_err}")
+        check(float(devs.max()) < LATERAL_TOL, f"{name}: paths deviate from the JAX package's by {float(devs.max())} m")
+        check(counts["B1 bare entry"] == 0, f"{name} launched B1's bare entry")
+        launches[name] = dict(counts, frames=len(frames), b1_per_frame=int(np.median(b1_frame)))
+    return launches
+
+
+def wrapped(angle: torch.Tensor) -> torch.Tensor:
+    """The size of an angle once it is wrapped into [-pi, pi)."""
+    return (torch.remainder(angle + np.pi, 2 * np.pi) - np.pi).abs()
+
+
+def phase_mission_batched_step(dev) -> dict:
+    """batched_step at B = 256 on skidpad and on acceleration frames, each
+    lane under its own SE(2), twice from a fresh state (in the second step
+    the relocalized lanes stay frozen), against the same batch on the CPU
+    lane for lane and against the same attempt in float64 on the card.
+    Returns per mission both kernels' launches of each step."""
+    from ft_fsd_path_planning_torch import MissionTypes
+    from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.models import relocalization
+    from ft_fsd_path_planning_torch.models.planner import FrameInput
+    from ft_fsd_path_planning_torch.ops import fitpack
+    from ft_fsd_path_planning_torch.parallel import batch, scenarios
+
+    launches = {}
+    for mission_name in ("skidpad", "acceleration"):
+        cfg = default_config(getattr(MissionTypes, mission_name), n_cones=N_CONES)
+        frames, map_rotation = scenarios.mission_frame_batch(cfg, BATCH, seed=0, device=dev)
+        fresh = batch.make_batch_state(cfg, BATCH, dev)
+        batch.batched_step(cfg, fresh, frames)  # warm-up
+        torch.cuda.synchronize()
+
+        outs, counts, state = [], [], fresh
+        for _ in range(2):
+            reset_counts()
+            fitpack.loop_syncs = 0
+            out, state = batch.batched_step(cfg, state, frames)
+            torch.cuda.synchronize()
+            counts.append(dict(read_counts(f"{mission_name} batched_step", sorts=False), loop_syncs=fitpack.loop_syncs))
+            outs.append((out, state))
+        t0 = time.perf_counter()
+        cpu_frames = FrameInput(*(x.cpu() for x in frames))
+        cpu_outs, cpu_state = [], batch.make_batch_state(cfg, BATCH, "cpu")
+        for _ in range(2):
+            out, cpu_state = batch.batched_step(cfg, cpu_state, cpu_frames)
+            cpu_outs.append((out, cpu_state))
+        cpu_s = time.perf_counter() - t0
+
+        (out1, st1), (out2, st2) = outs
+        relocalized = out1.relocalized
+        share = float(relocalized.float().mean())
+        map_rotation = torch.as_tensor(map_rotation)
+        rot_err = wrapped(st1.reloc.rotation.double().cpu() + map_rotation)[relocalized.cpu()]
+        devs = [float(lateral(o.path.cpu(), c.path).max()) for (o, _), (c, _) in zip(outs, cpu_outs)]
+        # the same attempt in float64 on the card, as the facade's refinement
+        # runs it: the step's float32 transform must agree with it, and what
+        # is left against a lane's own SE(2) is the cones' noise, the same in
+        # either precision
+        xy64, pos64, dir64 = (t.double() for t in (frames.cones[..., :2], frames.position, frames.direction))
+        if mission_name == "skidpad":
+            ok64, rot64, trans64, _ = relocalization.skidpad_relocalize_once(xy64, frames.mask, pos64, pos64, dir64)
+        else:
+            ok64, rot64, trans64, _ = relocalization.acceleration_relocalize_once(xy64, frames.mask, pos64, dir64, pos64)
+        both = relocalized & ok64
+        rot_32_64 = wrapped(st1.reloc.rotation.double() - rot64)[both]
+        trans_32_64 = (st1.reloc.translation.double() - trans64).abs()[both]
+        rot_err64 = wrapped(rot64.cpu() + map_rotation)[both.cpu()]
+        log(
+            f"mission batched_step {mission_name} B={BATCH}: the attempt in float64 on the card relocalizes {int(ok64.sum())} lanes "
+            f"({int((ok64 != relocalized).sum())} other than the float32 step); float32 step vs float64 on the lanes of both: rotation max "
+            f"{float(rot_32_64.max())!r} rad, translation max {float(trans_32_64.max())!r} m; float64 rotation vs the lanes' own SE(2) max "
+            f"{float(rot_err64.max())!r} rad"
+        )
+        check(float(rot_32_64.max()) < BATCH_ROT_32_64_TOL, f"{mission_name}: the float32 step's rotation is off the float64 one by {float(rot_32_64.max())} rad")
+        log(
+            f"mission batched_step {mission_name} B={BATCH} (global window {cfg.shapes.global_window}, dense samples "
+            f"{cfg.shapes.dense_samples}): relocalized share {share!r} (on the CPU {float(cpu_outs[0][0].relocalized.float().mean())!r}), "
+            f"rotation vs the lanes' own SE(2) max {float(rot_err.max())!r} rad median {float(rot_err.median())!r} rad; "
+            f"path_ok share {float(out1.path_ok.float().mean())!r}, {float(out2.path_ok.float().mean())!r}; "
+            f"lateral card vs CPU, step 1 and 2: {devs!r} m (the CPU's two steps took {cpu_s!r} s)"
+        )
+        for step_no, ((out, st), (cpu_out, cpu_st)) in enumerate(zip(outs, cpu_outs), 1):
+            check(out.path.shape == (BATCH, 40, 4) and bool(torch.isfinite(out.path).all()), f"bad {mission_name} batch paths")
+            check(bool(torch.equal(out.relocalized.cpu(), cpu_out.relocalized)), f"{mission_name} step {step_no}: card and CPU relocalize different lanes")
+            check(bool(torch.equal(out.path_ok.cpu(), cpu_out.path_ok)), f"{mission_name} step {step_no}: card and CPU disagree on path_ok")
+        check(max(devs) < LATERAL_TOL, f"{mission_name}: card and CPU paths differ by {max(devs)} m")
+        check(share > 0.1, f"{mission_name}: hardly a lane relocalized")
+        check(float(rot_err.max()) < BATCH_ROT_TOL[mission_name], f"{mission_name}: a lane's rotation is off its SE(2) by {float(rot_err.max())} rad")
+        for name in ("rotation", "translation", "center", "relocalized"):
+            check(bool(torch.equal(getattr(st1.reloc, name), getattr(st2.reloc, name))), f"{mission_name}: {name} moved after relocalization")
+
+        for label, start, count in (("from a fresh state", fresh, counts[0]), ("from the relocalized state", st1, counts[1])):
+            step = lambda: batch.batched_step(cfg, start, frames)  # noqa: E731
+            ms, syncs = time_step(step)
+            log(
+                f"mission batched_step {mission_name} B={BATCH} {label}: {ms!r} ms/step, {BATCH / ms * 1e3!r} frames/s, "
+                f"{syncs} host syncs/step ({count['loop_syncs']} FITPACK loop conditions), {kernel_count(step)} device kernels/step, "
+                f"launches {count}"
+            )
+        launches[mission_name] = {"fresh": counts[0], "relocalized": counts[1]}
+    return launches
+
+
+def phase_global_path(dev) -> dict:
+    """Trackdrive with a circle set as the global path, then unset, on the
+    same planner: the card's paths against the CPU's. Returns both kernels'
+    launches with the path set and after it is unset."""
+    from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
+    from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.parallel import scenarios
+
+    frames = scenarios.corridor_session(8)
+    circle = scenarios.global_path_circle()
+    cfg = default_config(MissionTypes.trackdrive, n_cones=N_CONES)
+    planners = [PathPlanner(MissionTypes.trackdrive, config=cfg, device=d) for d in (dev, "cpu")]
+    launches, paths, lat_ms = {}, [], []
+    for label, chunk, path in (("set", frames[:4], circle), ("unset", frames[4:], None)):
+        for planner in planners:
+            planner.set_global_path(path)
+        reset_counts()
+        for a in chunk:
+            t0 = time.perf_counter()
+            on_card = planners[0].calculate_path_in_global_frame(*a)
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+            paths.append((on_card, planners[1].calculate_path_in_global_frame(*a)))
+        launches[label] = dict(read_counts(f"trackdrive with the global path {label}"), frames=len(chunk))
+    card, cpu = (np.stack(x) for x in zip(*paths))
+    check(np.isfinite(card).all(), "non-finite paths with a global path")
+    devs = lateral(torch.tensor(card), torch.tensor(cpu)).numpy()
+    bend = float(card[3, -1, 2] - frames[3][1][1])
+    log(
+        f"global path (circle of {len(circle)} points over a straight corridor, n_cones {N_CONES}): lateral card vs CPU per frame "
+        f"{[float(d) for d in devs]!r} m; end of the path {bend!r} m to the left of the car with the circle set, "
+        f"{float(card[-1, -1, 2])!r} m after it is unset; latency per frame {[round(m, 1) for m in lat_ms]} ms; launches {launches}"
+    )
+    check(float(devs.max()) < LATERAL_TOL, f"global path: card and CPU paths differ by {float(devs.max())} m")
+    check(bend > 2.0 and abs(float(card[-1, -1, 2])) < 0.3, "the global path did not steer the path, or went on steering it after it was unset")
+    check(planners[0].cfg.supports_global_path, "set_global_path did not switch the config")
+    return launches
 
 
 def main() -> int:
@@ -782,12 +1201,17 @@ def main() -> int:
     cfg = default_config(n_cones=N_CONES)
     replay_cfg = default_config(MissionTypes.trackdrive, n_cones=REPLAY_N_CONES)
     b1_bare, b1_fused = phase_b1_vs_plain(cfg, dev)
+    timed(phase_b1_vs_plain_missions, dev)
     b2 = phase_b2_vs_plain(cfg, replay_cfg, dev)
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
-    step_launches = phase_batched_step(cfg, dev)
-    replay_launches = phase_replay(replay_cfg, dev)
+    step_launches = timed(phase_batched_step, cfg, dev)
+    replay_launches = timed(phase_replay, replay_cfg, dev)
+    mission_launches = timed(phase_mission_replay, dev)
+    mission_batch_launches = timed(phase_mission_batched_step, dev)
+    global_path_launches = timed(phase_global_path, dev)
+    log(f"all phases, the kernels' build included: {time.perf_counter() - START!r} s of the {TIME_LIMIT_S} s a run may take")
     # B1's two entries are one kernel: the first row counts its launches
     # through either entry and times the bare one, the second is the fused
     # entry, the one the main path takes
@@ -796,6 +1220,14 @@ def main() -> int:
         kernel["launches"] = step_launches[count]  # one batched_step at B = 256
         kernel["launches_replay"] = replay_launches["replay"][count]
         kernel["launches_cached_replay"] = replay_launches["cached_replay"][count]
+        # the relocalizer missions: per session replay (B = 1; all frames, and the median a frame for B1),
+        # per batched step at B = 256 from a fresh and from the relocalized state; trackdrive with a global path
+        kernel["launches_mission_replay"] = {k: v[count] for k, v in mission_launches.items()}
+        kernel["launches_mission_batched_step"] = {
+            f"{k}, {start}": v[start][count] for k, v in mission_batch_launches.items() for start in v
+        }
+        kernel["launches_global_path"] = {k: v[count] for k, v in global_path_launches.items()}
+    b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
     log(json.dumps({"kernels": [kernel for kernel, _ in rows]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

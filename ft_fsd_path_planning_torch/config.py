@@ -95,6 +95,16 @@ class ShapeBudget:
     reloc_closest_cones: int = 20
     reloc_max_centers: int = 64
 
+    def __post_init__(self) -> None:
+        # the same range the JAX package accepts (there integer indices ride
+        # float32 one-hot contractions, exact only below 2**24), so a config
+        # is valid in both packages or in neither
+        for name in ("n_cones", "config_len", "side_len", "dense_samples",
+                     "global_window"):
+            value = getattr(self, name)
+            if not 0 < value < 2**24:
+                raise ValueError(f"ShapeBudget.{name}={value} outside (0, 2**24)")
+
 
 @dataclasses.dataclass(frozen=True)
 class PlannerConfig:
@@ -153,3 +163,10 @@ def default_config(
         **overrides,
     )
 
+
+def large_map_config(
+    mission: MissionTypes = MissionTypes.trackdrive,
+    experimental_performance_improvements: bool = False,
+) -> PlannerConfig:
+    """Preset sized for whole-SLAM-map frames (hundreds of cones)."""
+    return default_config(mission, experimental_performance_improvements, n_cones=256)

@@ -1,17 +1,18 @@
 """Public NumPy-in/NumPy-out facade — the reference `PathPlanner`
 (full_pipeline/full_pipeline.py:53-217) on the PyTorch planner.
 
-Counterpart of `ft_fsd_path_planning_tpu/models/facade.py` for the sorting
-missions (trackdrive, autocross): the facade pads ragged host inputs into
-the fixed shape budget, runs one batched planner step with a batch of one on
-the device, and returns the path. With
+Counterpart of `ft_fsd_path_planning_tpu/models/facade.py`: the facade pads
+ragged host inputs into the fixed shape budget, runs one batched planner
+step with a batch of one on the device, and returns the path. With
 ``experimental_performance_improvements`` it keeps the reference's
 sorting-result cache on the host and decides per frame whether the sorter
-runs at all.
+runs at all. On the relocalizer missions (skidpad, acceleration, EBS test)
+it recomputes the transform in float64 on the frame that first relocalizes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any, List, Optional, Tuple, Union
 
@@ -20,8 +21,9 @@ import torch
 
 from ft_fsd_path_planning_torch.config import PlannerConfig, default_config
 from ft_fsd_path_planning_torch.device import resolve_device
-from ft_fsd_path_planning_torch.models import sorting
+from ft_fsd_path_planning_torch.models import pathing, relocalization, sorting
 from ft_fsd_path_planning_torch.models.planner import (
+    GLOBAL_PATH_BUFFER_LEN,
     FrameInput,
     PlannerState,
     StepOutput,
@@ -33,6 +35,14 @@ from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
 
 FloatArray = np.ndarray
+
+
+@dataclasses.dataclass
+class RelocalizationInformation:
+    """Parity with reference relocalization_information.py:12-35."""
+
+    translation: FloatArray
+    rotation: float
 
 
 def flatten_cones_by_type(
@@ -138,11 +148,10 @@ def _fetch(tensors: tuple[torch.Tensor, ...]) -> list[np.ndarray]:
 
 
 class PathPlanner:
-    """The reference PathPlanner for trackdrive and autocross.
+    """The reference PathPlanner, every mission.
 
     Runs on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"``). Not ported yet (ROADMAP.md, Queue A10):
-    ``set_global_path`` and the relocalizer missions.
+    ``device="cpu"``).
     """
 
     def __init__(
@@ -154,12 +163,12 @@ class PathPlanner:
     ) -> None:
         self.mission = mission
         self.cfg = config or default_config(mission, experimental_performance_improvements)
-        if self.cfg.has_relocalizer:
-            raise NotImplementedError(
-                "relocalizer missions are not ported yet (ROADMAP.md, Queue A10)"
-            )
         self.device = resolve_device(device)
         self._state = make_initial_state(self.cfg, 1, self.device)
+        self.global_path: Optional[FloatArray] = None
+        # float64 relocalization refinement bookkeeping (see _refine_reloc_f64)
+        self._origin64: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._was_relocalized = False
         # sorting-result cache (experimental_performance_improvements):
         # reference ConeSortingCacheEntry, core_trace_sorter.py:100-110
         self._sort_cache: Optional[dict] = None
@@ -177,9 +186,25 @@ class PathPlanner:
         raise ValueError("direction must be a float or a 2 element array")
 
     def set_global_path(self, global_path: Optional[FloatArray]) -> None:
-        raise NotImplementedError(
-            "the global-path branch is not ported yet (ROADMAP.md, Queue A10)"
-        )
+        self.global_path = global_path
+        if global_path is not None and not self.cfg.supports_global_path:
+            # the common trackdrive step runs WITHOUT the global-path branch
+            # (small centerline buffer); opting in switches the config. State
+            # shapes are identical, so the carried state survives the switch.
+            self.cfg = dataclasses.replace(self.cfg, supports_global_path=True)
+        if global_path is None:
+            buf = pathing.GlobalPathBuffer.empty(1, GLOBAL_PATH_BUFFER_LEN, self.device)
+        else:
+            gp = np.asarray(global_path, np.float32)
+            n = min(len(gp), GLOBAL_PATH_BUFFER_LEN)
+            pts = np.zeros((GLOBAL_PATH_BUFFER_LEN, 2), np.float32)
+            pts[:n] = gp[:n]
+            buf = pathing.GlobalPathBuffer(
+                points=torch.as_tensor(pts, device=self.device)[None],
+                n_valid=torch.tensor([n], dtype=torch.int32, device=self.device),
+                active=torch.ones(1, dtype=torch.bool, device=self.device),
+            )
+        self._state = self._state._replace(global_path=buf)
 
     def calculate_path_in_global_frame(
         self,
@@ -202,10 +227,28 @@ class PathPlanner:
             position=torch.as_tensor(np.asarray(vehicle_position, np.float32), device=dev)[None],
             direction=torch.as_tensor(np.asarray(vehicle_direction, np.float32), device=dev)[None],
         )
+        if self.cfg.has_relocalizer and self._origin64 is None:
+            # the reference stores the FIRST pose as the relocalization
+            # origin (relocalization_base_class.py:59-68); kept at float64
+            # for the refinement rerun
+            self._origin64 = (
+                np.array(vehicle_position, np.float64),
+                np.array(vehicle_direction, np.float64),
+            )
+
         if self._use_sort_cache:
             out, self._state = self._step_with_sort_cache(frame, pts, mask)
         else:
             out, self._state = planner_step(self.cfg, self._state, frame)
+
+        # one host sync a frame until the mission has relocalized
+        if (
+            self.cfg.has_relocalizer
+            and not self._was_relocalized
+            and bool(self._state.reloc.relocalized[0])
+        ):
+            self._refine_reloc_f64(cones, vehicle_position, vehicle_direction)
+            self._was_relocalized = True
 
         if not return_intermediate_results:
             return out.path[0].cpu().numpy().astype(np.float64)
@@ -236,6 +279,51 @@ class PathPlanner:
             unpad_int(l2r, lm),
             unpad_int(r2l, rm),
         )
+
+    def _refine_reloc_f64(
+        self,
+        cones: List[FloatArray],
+        vehicle_position: FloatArray,
+        vehicle_direction: FloatArray,
+    ) -> None:
+        """Recompute the SE(2) transform at float64 once relocalization
+        first succeeds.
+
+        The step's relocalizer runs in float32; its transform parameters
+        differ from the reference's float64 computation by ~0.7 mm over the
+        pose range, enough to flip the skidpad windowed tracker's argmin on
+        knife-edge frames (gaps down to 2.5e-5 m where the multi-lap path
+        overlaps itself near lap junctions). Rerunning the SAME
+        relocalization code in ``torch.float64`` on the planner's own device
+        with this frame's float64 inputs recovers reference-grade precision
+        without a second implementation; the refined parameters, cast to
+        float32, overwrite the carried state (the reference computes its
+        transform in float64 once and freezes it,
+        relocalization_base_class.py:70-75)."""
+        pts64, mask = flatten_cones_by_type(cones, self.cfg.shapes.n_cones, dtype=np.float64)
+        dev = self.device
+
+        def f64(a) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)[None]
+
+        origin_pos, origin_dir = self._origin64
+        xy, m, pos = f64(pts64[:, :2]), torch.as_tensor(mask, device=dev)[None], f64(vehicle_position)
+        if self.cfg.mission.name == "skidpad":
+            ok, rot, trans, center = relocalization.skidpad_relocalize_once(
+                xy, m, pos, f64(origin_pos), f64(origin_dir)
+            )
+        else:
+            ok, rot, trans, center = relocalization.acceleration_relocalize_once(
+                xy, m, pos, f64(vehicle_direction), f64(origin_pos)
+            )
+        if not bool(ok[0]):
+            return  # gate knife edge: keep the step's transform
+        reloc = self._state.reloc._replace(
+            rotation=rot.to(torch.float32),
+            translation=trans.to(torch.float32),
+            center=center.to(torch.float32),
+        )
+        self._state = self._state._replace(reloc=reloc)
 
     def _step_with_sort_cache(
         self, frame: FrameInput, pts: np.ndarray, mask: np.ndarray
@@ -305,3 +393,14 @@ class PathPlanner:
         )
         self._sort_cache = dict(entry, sorted_l=sl, sorted_l_mask=lm, sorted_r=sr, sorted_r_mask=rm)
         return out, state
+
+    @property
+    def relocalization_info(self) -> Optional[RelocalizationInformation]:
+        reloc = self._state.reloc
+        if not self.cfg.has_relocalizer or not bool(reloc.relocalized[0]):
+            return None
+        probes = torch.tensor([[[0.0, 0.0], [1.0, 0.0]]], device=self.device)
+        known, _ = relocalization.transform_to_known_frame(reloc, probes, torch.zeros_like(probes[..., 0]))
+        origin, one_zero = known[0].cpu().numpy().astype(np.float64)
+        rotation = float(np.arctan2(one_zero[1] - origin[1], one_zero[0] - origin[0]))
+        return RelocalizationInformation(translation=origin, rotation=rotation)

@@ -2,13 +2,13 @@
 
 Counterpart of `ft_fsd_path_planning_tpu/models/pathing.py` (reference
 `calculate_path/core_calculate_path.py:63-575` and
-`path_parameterization.py:111-328`), trackdrive branch: the centerline comes
-from matched cone pairs or the previous path. Every ragged array becomes a
-fixed buffer plus a valid count, and the reference's fallback lattice
-becomes selects on ok-flags. Tensors carry a leading batch axis B.
-
-The global-path branch (``supports_global_path``) and the skidpad override
-are not ported yet (ROADMAP.md, Queue A10).
+`path_parameterization.py:111-328`) and the skidpad override
+(`calculate_path/skidpad_calculate_path.py:21-71`): the centerline comes
+from matched cone pairs, the previous path or, with
+``supports_global_path``, a window of the global path rolled to the car.
+Every ragged array becomes a fixed buffer plus a valid count, and the
+reference's fallback lattice becomes selects on ok-flags. Tensors carry a
+leading batch axis B, and every select is per lane.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from ft_fsd_path_planning_torch.ops.curvature import path_curvature, uniform_fil
 
 Tensor = torch.Tensor
 
-_CENTERLINE_SLOTS = 64  # matches/previous-path centerline buffer
+_CENTERLINE_SLOTS = 64  # matches/previous-path centerline buffer without the global-path branch
 
 
 class PathInput(NamedTuple):
@@ -107,9 +107,40 @@ def _fit_and_densify(
     return vals, torch.sum(valid, dim=1), fit.ok, fit.budget_hit
 
 
+def trivial_path(position: Tensor, direction: Tensor) -> tuple[Tensor, Tensor]:
+    """Reference calculate_trivial_path (core_calculate_path.py:127-134):
+    the almost-straight chord (minus its first point) rotated to the car
+    frame. Returns ((B, 39, 2) points, (B, 39) mask)."""
+    origin = torch.as_tensor(ALMOST_STRAIGHT_PATH[1:], device=position.device)
+    yaw = geo.angle_from_2d_vector(direction)
+    pts = geo.rotate(origin[None], yaw[:, None]) + position[:, None]
+    return pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=position.device)
+
+
 # ---------------------------------------------------------------------------
 # centerline selection
 # ---------------------------------------------------------------------------
+
+
+def _global_path_centerline(
+    cfg: PlannerConfig, gp: GlobalPathBuffer, position: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Roll the global path so the closest point sits at len//3, keep points
+    within 30 m (core_calculate_path.py:516-529). Returns (B, CL, 2) + mask."""
+    cl = cfg.shapes.global_window
+    g = gp.points.shape[1]
+    iota = torch.arange(g, device=position.device)[None, :]
+    in_path = iota < gp.n_valid[:, None]
+    dist = _norm(gp.points - position[:, None])
+    idx_closest = geo.masked_argmin(dist, in_path)
+    n = torch.clamp(gp.n_valid, min=1)
+    # rolled[i] = original[(i + s) mod n] on the valid prefix of length n;
+    # slots past it are never kept
+    s = torch.remainder(idx_closest - n // 3, n)
+    rolled = gl.take_rows(gp.points, torch.remainder(iota + s[:, None], n[:, None]))
+    keep = in_path & (_norm(rolled - position[:, None]) < 30.0)
+    order, valid = geo.stable_compact(keep, cl)
+    return gl.take_rows(rolled, order), valid
 
 
 def _matches_centerline(
@@ -397,22 +428,19 @@ def run_path_calculation(
     gp: GlobalPathBuffer,
     state: PathState,
 ) -> PathOutput:
-    """Full stage (reference run_path_calculation, core_calculate_path.py:514-575),
-    trackdrive branch."""
-    if cfg.supports_global_path or cfg.mission.name == "skidpad":
-        raise NotImplementedError(
-            "the global-path branch and the skidpad override are not ported "
-            "yet (ROADMAP.md, Queue A10)"
-        )
+    """Full stage (reference run_path_calculation, core_calculate_path.py:514-575)."""
     d = cfg.shapes.dense_samples
     dev = inp.position.device
     prev_xy = state.prev_path[:, :, 1:3]
     h = prev_xy.shape[1]
 
-    # ---- centerline selection: matches midpoints or the previous path
+    # ---- centerline selection. Without global-path support the centerline
+    # is matches midpoints or the 40-point previous path: a 64-slot buffer
+    # instead of the global_window-sized one (the fit cost scales with it)
     n_l = torch.sum(inp.left_mask, dim=1)
     n_r = torch.sum(inp.right_mask, dim=1)
-    cl = _CENTERLINE_SLOTS
+    use_gp = cfg.supports_global_path
+    cl = cfg.shapes.global_window if use_gp else _CENTERLINE_SLOTS
     match_pts, match_mask = _matches_centerline(inp, prev_xy, cl)
 
     prev_padded = _pad_rows(prev_xy, cl)
@@ -421,16 +449,29 @@ def run_path_calculation(
     too_few_cones = ((n_l < 3) & (n_r < 3))[:, None]
     camc_pts = torch.where(too_few_cones[..., None], prev_padded, match_pts)
     camc_mask = torch.where(too_few_cones, prev_mask, match_mask)
+    if use_gp:
+        gp_active = gp.active[:, None]
+        global_pts, global_mask = _global_path_centerline(cfg, gp, inp.position)
+        camc_pts = torch.where(gp_active[..., None], global_pts, camc_pts)
+        camc_mask = torch.where(gp_active, global_mask, camc_mask)
     camc_pts = torch.where(camc_mask[..., None], camc_pts, torch.zeros_like(camc_pts))
 
-    # ---- fit + densify. splprep failure -> fit the previous path instead;
-    # the failure condition is known from the chord parameterization, so the
-    # fallback is an input select rather than a second fit
-    _, _, camc_fit_ok = sp.chord_lengths(camc_pts, camc_mask)
-    fit_ok = camc_fit_ok[:, None]
-    fit_pts = torch.where(fit_ok[..., None], camc_pts, prev_padded)
-    fit_mask = torch.where(fit_ok, camc_mask, prev_mask)
-    dense, n_dense, _, cl_budget = _fit_and_densify(cfg, fit_pts, fit_mask, cfg.path.smoothing)
+    # ---- fit + densify (fit_matches_as_spline, with the skidpad override)
+    new_index_along_path = state.index_along_path
+    if cfg.mission.name == "skidpad":
+        dense, n_dense, new_index_along_path = _skidpad_path_update(
+            cfg, gp, state, inp.position, inp.direction
+        )
+        cl_budget = torch.zeros_like(too_few_cones[:, 0])
+    else:
+        # splprep failure -> fit the previous path instead; the failure
+        # condition is known from the chord parameterization, so the
+        # fallback is an input select rather than a second fit
+        _, _, camc_fit_ok = sp.chord_lengths(camc_pts, camc_mask)
+        fit_ok = camc_fit_ok[:, None]
+        fit_pts = torch.where(fit_ok[..., None], camc_pts, prev_padded)
+        fit_mask = torch.where(fit_ok, camc_mask, prev_mask)
+        dense, n_dense, _, cl_budget = _fit_and_densify(cfg, fit_pts, fit_mask, cfg.path.smoothing)
 
     # ---- overwrite if too far from the car -> raw previous points
     dense_valid = torch.arange(d, device=dev)[None, :] < n_dense[:, None]
@@ -440,7 +481,17 @@ def run_path_calculation(
     dense = torch.where(too_far[:, None, None], _pad_rows(prev_xy, d), dense)
     n_dense = torch.where(too_far, torch.full_like(n_dense, h), n_dense)
 
-    # ---- MPC chain
+    # ---- MPC chain. Early behind-car trim on an active global path ONLY:
+    # that branch can fill the whole dense buffer (the car sits at 1/3 of a
+    # 60 m window), leaving no room for the connect and extend steps; there
+    # the trim keeps the semantics because the car is ON the path. In the
+    # matches and fallback branches the reference trims only AFTER
+    # connect_path_to_car.
+    if use_gp:
+        dense_t, n_dense_t = _remove_path_behind_car(dense, n_dense, inp.position)
+        dense = torch.where(gp.active[:, None, None], dense_t, dense)
+        n_dense = torch.where(gp.active, n_dense_t, n_dense)
+
     p1, n1 = _connect_path_to_car(dense, n_dense, inp.position, inp.direction)
     p2, n2 = _extend_path(p1, n1, inp.position, inp.direction, cfg.path.mpc_path_length)
     p3, n3 = _remove_path_behind_car(p2, n2, inp.position)
@@ -459,12 +510,59 @@ def run_path_calculation(
     ok = refit.ok & trim_ok & param_ok
     final = torch.where(ok[:, None, None], out, state.prev_path)
 
-    new_state = PathState(prev_path=final, index_along_path=state.index_along_path)
+    new_state = PathState(prev_path=final, index_along_path=new_index_along_path)
     return PathOutput(
         path=final, centerline=camc_pts, centerline_mask=camc_mask, state=new_state,
         ok=ok, too_far=too_far,
         spline_budget_hit=cl_budget | refit.budget_hit | param_budget,
     )
+
+
+def _skidpad_path_update(
+    cfg: PlannerConfig,
+    gp: GlobalPathBuffer,
+    state: PathState,
+    position: Tensor,
+    direction: Tensor,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Skidpad override of fit_matches_as_spline
+    (skidpad_calculate_path.py:49-71): windowed nearest-point tracking along
+    the fixed global path; before relocalization the trivial path.
+
+    Returns (dense (B, D, 2), n_valid (B,), new_index_along_path (B,)).
+    """
+    d = cfg.shapes.dense_samples
+    dev = position.device
+    g = gp.points.shape[1]
+
+    seg = geo.trace_distance_to_next(gp.points[:, :10])
+    mean_distance = torch.clamp(torch.sum(seg, dim=1) / seg.shape[1], min=1e-6)
+    max_change = fpk._f32_to_i32(20.0 / mean_distance)
+
+    index = state.index_along_path
+    min_index = torch.clamp(index - max_change, min=0)
+    max_index = torch.minimum(index + max_change, gp.n_valid)
+
+    iota = torch.arange(g, device=dev)[None, :]
+    in_window = (iota >= min_index[:, None]) & (iota < max_index[:, None])
+    index_to_use = geo.masked_argmin(_norm(gp.points - position[:, None]), in_window).to(torch.int32)
+    final_index = index_to_use + fpk._f32_to_i32(25.0 / mean_distance)
+
+    take = index_to_use[:, None] + torch.arange(d, device=dev)[None, :]
+    track_valid = (take < final_index[:, None]) & (take < gp.n_valid[:, None])
+    tracked = gl.window(gp.points, index_to_use, d)
+
+    # before relocalization: the trivial straight path from the car (:54-55)
+    triv, _ = trivial_path(position, direction)
+    active = gp.active[:, None]
+    dense = torch.where(
+        active[..., None],
+        torch.where(track_valid[..., None], tracked, torch.zeros_like(tracked)),
+        _pad_rows(triv, d),
+    )
+    n_dense = torch.where(gp.active, torch.sum(track_valid, dim=1), triv.shape[1])
+    new_index = torch.where(gp.active, index_to_use, index)
+    return dense, n_dense, new_index
 
 
 def initial_path_state(cfg: PlannerConfig, batch: int, device: torch.device) -> PathState:

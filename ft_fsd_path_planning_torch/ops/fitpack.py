@@ -390,6 +390,14 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         if not _any(active):
             break
         c2, f2 = solve_at(p)
+        # a float32 band factorization can break down on G + D^T D / p^2 when
+        # p is small against the data's scale (a 100 m hairpin: D^T D / p^2
+        # ~1e9 beside G ~1e1, a pivot cancels to <= 0 and the solve returns
+        # inf or NaN). Such a lane keeps its carry and retries with a larger
+        # p, as if p had been too small: D^T D / p^2 shrinks and the system
+        # becomes solvable. Without this the NaN would stay in p for good.
+        broke = active & ~torch.isfinite(f2)
+        active = active & ~broke
         c_best = _sel(active, c2, c_best)
 
         new_conv = active & (torch.abs(f2) < acc)
@@ -426,8 +434,11 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         f3_out = torch.where(b1, f2, torch.where(do_step, f3_s, f3))
         p3_inf_out = torch.where(b1, torch.zeros_like(p3_inf), torch.where(do_step, p3_inf_s, p3_inf))
 
+        p_retry = p / _CON4
+        p_retry = torch.where(~p3_inf & (p_retry >= p3), p * _CON1 + p3 * _CON9, p_retry)
+
         # lanes whose loop already ended keep their carry
-        p = torch.where(active, p_out, p)
+        p = torch.where(active, p_out, torch.where(broke, p_retry, p))
         p1 = torch.where(active, p1_out, p1)
         f1 = torch.where(active, f1_out, f1)
         p3 = torch.where(active, p3_out, p3)

@@ -98,6 +98,10 @@ def points_inside_ellipse(
     return crit < 1.0
 
 
+def lerp(values: Tensor, start1: Tensor, stop1: Tensor, start2: Tensor, stop2: Tensor) -> Tensor:
+    return (values - start1) / (stop1 - start1) * (stop2 - start2) + start2
+
+
 def circle_fit(points: Tensor, mask: Tensor | None = None, max_iter: int = 32) -> Tensor:
     """Masked hyper-fit circle estimation -> [cx, cy, r] over (..., P, 2).
 

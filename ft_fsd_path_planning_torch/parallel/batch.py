@@ -52,6 +52,16 @@ def replay_scan(
     return state, torch.stack(paths)
 
 
+def batched_replay(
+    cfg: PlannerConfig, states: PlannerState, frames: FrameInput
+) -> tuple[PlannerState, Tensor]:
+    """(B, T, ...) frame batches, each lane its own scenario with its own
+    carried state; returns (final_states, (B, T, H, 4) paths). The step is
+    batched already, so this is `replay_scan` over the transposed frames."""
+    final, paths = replay_scan(cfg, states, FrameInput(*(x.transpose(0, 1) for x in frames)))
+    return final, paths.transpose(0, 1)
+
+
 class BatchMetrics(NamedTuple):
     """Per-batch aggregate metrics: solve success, fallback-path rate and
     the shape statistics a race engineer watches during a run."""

@@ -6,7 +6,7 @@ against the JAX package.
 * `planner_step_presorted` at B = 8 on the JAX sorter's output: match index
   arrays equal, paths laterally under 1 cm (the fits run different but
   equally accurate solvers, see test_torch_fitpack.py).
-* The first 40 frames of the committed session through both `PathPlanner`s
+* The first 64 frames of the committed session through both `PathPlanner`s
   with `experimental_performance_improvements=True`: the same hit/miss
   sequence, paths laterally under 1 cm to JAX and under 5 cm to the reference
   planner's `paths_cached`, and `return_intermediate_results=True` gives the
@@ -47,7 +47,7 @@ REPO = Path(__file__).resolve().parents[1]
 SESSION = REPO / "ft_fsd_path_planning_tpu/demo/closed_track_session.json"
 GOLDEN = REPO / "ft_fsd_path_planning_tpu/demo/trackdrive_golden.npz"
 B, N = 8, 64
-N_FRAMES = 40
+N_FRAMES = 64  # past the near-threshold hit frames 18 and 58 (largest cone distance 0.09968 and 0.09952 m)
 LATERAL_TOL = 0.01
 
 
@@ -159,6 +159,9 @@ def test_sort_cache_hits_the_same_frames(cached_replay):
     _, _, our_hits, their_hits = cached_replay
     assert our_hits == their_hits  # cumulative counts: the same hit/miss sequence
     assert 3 <= our_hits[-1] < N_FRAMES  # both branches ran
+    # frames 18 and 58 sit within 1 mm under the 0.1 m threshold: hits here as on the card
+    hit = np.diff([0] + our_hits) > 0
+    assert hit[18] and hit[58], np.nonzero(hit)[0].tolist()
 
 
 def test_sort_cache_paths_match_jax_and_golden(cached_replay):
@@ -187,5 +190,25 @@ def test_intermediate_results_match_jax(cached_replay):
 def test_plain_flag_leaves_the_cache_off():
     tpl = PathPlanner(MissionTypes.trackdrive, config=torch_config(MissionTypes.trackdrive, n_cones=64), device="cpu")
     assert not tpl._use_sort_cache and tpl.sort_cache_hits == 0
-    with pytest.raises(NotImplementedError):
-        tpl.set_global_path(np.zeros((4, 2)))
+    # a global path switches the config and leaves the cache's setting alone
+    circle = tscen.global_path_circle()
+    tpl.set_global_path(circle)
+    assert tpl.cfg.supports_global_path and not tpl._use_sort_cache
+    assert int(tpl._state.global_path.n_valid[0]) == len(circle) and bool(tpl._state.global_path.active[0])
+    tpl.set_global_path(None)
+    assert tpl.cfg.supports_global_path and not bool(tpl._state.global_path.active[0])
+
+
+def test_sort_cache_goes_on_working_with_a_global_path():
+    """With the cache on and a global path set, a repeated frame hits the
+    cache and takes the presorted step through the global-path branch."""
+    cfg = torch_config(MissionTypes.trackdrive, True, n_cones=64)
+    tpl = PathPlanner(MissionTypes.trackdrive, config=cfg, device="cpu")
+    plain = PathPlanner(MissionTypes.trackdrive, config=torch_config(MissionTypes.trackdrive, n_cones=64), device="cpu")
+    for planner in (tpl, plain):
+        planner.set_global_path(tscen.global_path_circle())
+    frame = tscen.corridor_session(1)[0]
+    paths = [(tpl.calculate_path_in_global_frame(*frame), plain.calculate_path_in_global_frame(*frame)) for _ in range(3)]
+    assert tpl.sort_cache_hits == 2 and tpl._use_sort_cache and tpl.cfg.supports_global_path
+    for cached, uncached in paths:
+        np.testing.assert_allclose(cached, uncached, rtol=0, atol=1e-5)

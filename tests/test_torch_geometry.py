@@ -56,6 +56,16 @@ def test_angles_rotation_and_distances():
     close(tgeo.cdist_sq(t(a), t(b)), jgeo.cdist_sq(a, b), atol=1e-4)
 
 
+def test_lerp():
+    values = RNG.uniform(-3, 3, (4, 16)).astype(np.float32)
+    lo1, hi1 = np.float32(-3.0), np.float32(3.0)
+    lo2 = RNG.uniform(0, 1, (4, 1)).astype(np.float32)
+    hi2 = lo2 + np.float32(2.5)
+    close(tgeo.lerp(t(values), t(lo1), t(hi1), t(lo2), t(hi2)), jgeo.lerp(values, lo1, hi1, lo2, hi2))
+    # the ends of the first range map onto the ends of the second
+    close(tgeo.lerp(t(np.stack([lo1, hi1])), t(lo1), t(hi1), t(lo2[0]), t(hi2[0])), np.concatenate([lo2[0], hi2[0]]))
+
+
 def test_points_inside_ellipse():
     center = RNG.normal(0, 2, (4, 2)).astype(np.float32)
     direction = RNG.normal(0, 1, (4, 2)).astype(np.float32)

@@ -162,7 +162,8 @@ def test_import_loads_no_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
-    assert "ft_fsd_path_planning_torch.parallel.batch" in modules
+    for name in ("parallel.batch", "assets.known_paths", "models.relocalization", "utils.timer", "profile_step"):
+        assert f"ft_fsd_path_planning_torch.{name}" in modules
 
 
 def test_entry_points_refuse_without_gpu(monkeypatch):
@@ -174,5 +175,9 @@ def test_entry_points_refuse_without_gpu(monkeypatch):
         tscen.make_frame_batch(cfg, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PathPlanner(MissionTypes.trackdrive)
-    with pytest.raises(NotImplementedError):
-        PathPlanner(MissionTypes.skidpad, device="cpu")
+    for mission in MissionTypes:  # every mission: refused without a GPU, accepted on the CPU
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PathPlanner(mission)
+        planner = PathPlanner(mission, config=torch_config(mission, n_cones=N), device="cpu")
+        assert planner.relocalization_info is None
+        assert planner.cfg.supports_global_path == planner.cfg.has_relocalizer

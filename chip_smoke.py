@@ -12,7 +12,8 @@ drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
 of bare solves it replaces; with B2 and with the sorter's scan), then the
 committed 300-frame session through ``PathPlanner`` without and with the
-sorting cache and (its first 100 frames) through ``replay_scan``. B1's two
+sorting cache. B2's K = 16 instantiation (the plan server's beam-width
+knob) is held against its plain version too. B1's two
 entries are also held against their plain versions on the systems the
 relocalizer missions and the global-path branch give them (B = 256 and
 B = 1, up to 704 input points and 1,024 dense samples, and the hairpin
@@ -24,7 +25,13 @@ that package falls back to its previous path, against its paths with a
 float64 solver), ``batched_step`` at B = 256 on skidpad and on
 acceleration frames each under its own SE(2) against the same batch on the
 CPU, and trackdrive with a global path set and unset against the CPU.
-``--kernels-only`` stops after the kernels' own phases. It checks the
+Then the port's front doors: the C++ session loader (built with g++,
+against its Python engine), ``bench_torch.py`` in-process at reduced depth
+(its JSON line; its ``replay_scan`` over all 300 frames must give the
+facade replay's paths), the replay CLI as a subprocess with and without
+colour, the plan server on 127.0.0.1 (fixtures against a direct
+``PathPlanner``, state carried across requests, a malformed request) and
+the viewer export. ``--kernels-only`` stops after the kernels' own phases. It checks the
 trackdrive paths against the reference planner's golden paths, and prints
 one JSON line of kernel measurements and, last, one JSON line with the
 device. Any failed phase ends the run with a non-zero exit
@@ -37,6 +44,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,7 +76,6 @@ FUSED_LATERAL_TOL = 0.0  # fused entry vs the composition of bare solves it repl
 AB_ROUNDS = 15  # steps of each kind when two versions of batched_step are timed in turns
 SIMILAR_THRESHOLD = 0.1  # the sort cache's cone-distance threshold, metres
 GOLDEN_MAX, GOLDEN_MEDIAN = 0.05, 0.01  # replay vs the reference planner, metres
-REPLAY_SCAN_FRAMES = 100  # session frames replay_scan repeats (the facade replays all 300)
 MISSION_ROT_TOL, MISSION_TRANS_TOL = 1e-4, 1e-3  # relocalization_info vs the JAX package's, rad and metres
 # a batch lane's rotation vs the SE(2) its frame was generated under, rad:
 # what 0.02 m of cone noise leaves of it (skidpad: two median centres 18 m
@@ -164,17 +171,18 @@ def read_counts(path: str, sorts: bool = True) -> dict:
 
 
 @contextlib.contextmanager
-def sorter_scan():
-    """Run the sorter's scan instead of kernel B2 inside the block."""
-    before = os.environ.get("FT_FSD_FUSED_BEAM")
-    os.environ["FT_FSD_FUSED_BEAM"] = "0"
+def env(**values: str):
+    """Set environment variables inside the block."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if before is None:
-            del os.environ["FT_FSD_FUSED_BEAM"]
-        else:
-            os.environ["FT_FSD_FUSED_BEAM"] = before
+        for k, v in before.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
 def session_args() -> list[tuple]:
@@ -573,6 +581,14 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
     for i in SESSION_CAPTURE_FRAMES:
         cases.append((f"main path, session frame {i}", *capture_searches(session_frame(frames[i]))))
     cases.append(("seeded batch B=37", *capture_searches(batched(37, 5))))
+    # the plan server's beam-width knob: the kernel's K = 16 instantiation
+    narrow = dataclasses.replace(cfg, sorting=dataclasses.replace(cfg.sorting, beam_width=16))
+    frames16 = scenarios.make_frame_batch(narrow, 37, seed=5, device=dev)
+    cases.append((
+        "beam width 16, seeded batch B=37",
+        *capture_searches(lambda: batch.batched_step(narrow, batch.make_batch_state(narrow, 37, dev), frames16)),
+    ))
+    check(cases[-1][2]["k"] == 16, "the beam-width-16 search did not run at K = 16")
 
     l = cfg.sorting.max_length
     int_rows = list(range(l)) + [l, l + 1, l + 7]  # configs, length, done, last_idx
@@ -628,6 +644,9 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
         f"B2 timing at G={args1[0].shape[0]} N={args1[0].shape[1]} (one frame of the replay): kernel {ms1!r} ms "
         f"from a CUDA graph ({eager_ms1!r} ms launched one by one)"
     )
+    _, args16, kwargs16 = cases[-1]
+    ms16 = graph_ms(lambda: bs.fused_beam_search_cuda(*args16, **kwargs16), 100)
+    log(f"B2 timing at K=16 G={args16[0].shape[0]} N={args16[0].shape[1]}: kernel {ms16!r} ms from a CUDA graph")
     return {
         "name": "fused_beam_search",
         "route": "cuda",
@@ -642,6 +661,7 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
         "library_ms": None,
         "scan_ms": scan_ms,
         "one_frame_ms": ms1,
+        "k16_g74_ms": ms16,
         "timed": "CUDA graph replay of 100 launches; plain_ms and scan_ms launched one by one",
         "one_by_one_ms": eager_ms,
         "one_by_one_one_frame_ms": eager_ms1,
@@ -774,7 +794,7 @@ def phase_batched_step(cfg, dev) -> dict:
     log(f"kernel vs plain-solve batched_step: max lateral {float(dev_m.max())!r} m, path_ok equal {bool((out.path_ok == plain_out.path_ok).all())}")
     check(float(dev_m.max()) < LATERAL_TOL, "kernel and plain-solve paths differ")
 
-    with sorter_scan():
+    with env(FT_FSD_FUSED_BEAM="0"):  # the sorter's scan in place of B2
         reset_counts()
         scan_out, _ = step()
         torch.cuda.synchronize()
@@ -886,15 +906,12 @@ def report_similarity(calls: list, n_frames: int) -> None:
     log(f"sort cache frames within 1 mm of the threshold: {[[f, int(hit), d] for f, hit, d in near]}")
 
 
-def phase_replay(cfg, dev) -> dict:
-    """The 300-frame session through PathPlanner (latency, golden parity),
-    through PathPlanner with the sorting cache, and through replay_scan
-    (must give the facade's paths). Returns both kernels' launches of the
-    two facade replays."""
+def phase_replay(cfg, dev) -> tuple[dict, np.ndarray]:
+    """The 300-frame session through PathPlanner (latency, golden parity)
+    and through PathPlanner with the sorting cache. Returns both kernels'
+    launches of the two facade replays and the first replay's paths, which
+    the bench's ``replay_scan`` must give again (phase_bench)."""
     from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
-    from ft_fsd_path_planning_torch.models.facade import flatten_cones_by_type
-    from ft_fsd_path_planning_torch.models.planner import FrameInput, make_initial_state
-    from ft_fsd_path_planning_torch.parallel import batch
 
     golden = np.load(GOLDEN)
     args = session_args()
@@ -918,22 +935,7 @@ def phase_replay(cfg, dev) -> dict:
     check(cached.sort_cache_hits / len(args) > 0.2, "the sort cache did not engage")
     check(cached_launches["B2"] + cached.sort_cache_hits == len(args), "a cache miss did not launch B2 once")
 
-    args = args[:REPLAY_SCAN_FRAMES]
-    flat = [flatten_cones_by_type(a[0], cfg.shapes.n_cones) for a in args]
-    frames = FrameInput(
-        cones=torch.tensor(np.stack([f[0] for f in flat])[:, None], device=dev),
-        mask=torch.tensor(np.stack([f[1] for f in flat])[:, None], device=dev),
-        position=torch.tensor(np.stack([a[1] for a in args])[:, None], dtype=torch.float32, device=dev),
-        direction=torch.tensor(np.stack([a[2] for a in args])[:, None], dtype=torch.float32, device=dev),
-    )
-    t0 = time.perf_counter()
-    _, scan_paths = batch.replay_scan(cfg, make_initial_state(cfg, 1, dev), frames)
-    torch.cuda.synchronize()
-    scan_s = time.perf_counter() - t0
-    diff = lateral(scan_paths[:, 0], torch.tensor(paths[: len(args)], device=dev))
-    log(f"replay_scan {len(args)} frames in {scan_s!r} s: max lateral vs PathPlanner {float(diff.max())!r} m")
-    check(float(diff.max()) < 1e-3, "replay_scan and PathPlanner disagree")
-    return {"replay": launches, "cached_replay": cached_launches}
+    return {"replay": launches, "cached_replay": cached_launches}, paths
 
 
 def timed(phase, *args):
@@ -1183,6 +1185,221 @@ def phase_global_path(dev) -> dict:
     return launches
 
 
+def phase_loader() -> None:
+    """The port's C++ session loader, built with g++ here, against its
+    Python engine on the committed session: the same arrays bit for bit."""
+    from ft_fsd_path_planning_torch.native import loader
+
+    t0 = time.perf_counter()
+    lib = loader.build()
+    log(f"C++ loader built in {time.perf_counter() - t0!r} s: {lib.relative_to(ROOT)}")
+    for n_max in (REPLAY_N_CONES, N_CONES):
+        t0 = time.perf_counter()
+        cpp = loader.load_session(SESSION, n_max=n_max)
+        cpp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = loader.load_session(SESSION, n_max=n_max, engine="python")
+        python_s = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes() for a, b in zip(cpp, python))
+        log(
+            f"session loader n_max={n_max}: {len(cpp[0])} frames, C++ {cpp_s * 1e3!r} ms, Python {python_s * 1e3!r} ms, "
+            f"arrays equal bit for bit {same}"
+        )
+        check(same and len(cpp[0]) == 300, f"the C++ and Python loaders disagree at n_max={n_max}")
+
+
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "latency_b1_device_ms", "latency_b1_p50_ms",
+    "latency_b1_p99_ms", "link_rtt_floor_ms", "replay_solves_per_s", "replay_parity_dev_p95_m",
+    "replay_parity_dev_max_m", "replay_centerline_dev_p95_m", "replay_centerline_dev_max_m",
+    "large_map_256_solves_per_s", "device", "power_limit_w",
+)
+
+
+def phase_bench(dev, facade_paths: np.ndarray) -> dict:
+    """bench_torch.py in-process at reduced depth: its JSON line with every
+    key and every number finite and positive, replay parity within the
+    golden bar, its replay_scan paths (all 300 frames) within 1 mm of the
+    facade replay's. Returns the kernels' launches per batch step and over
+    the whole run."""
+    import bench_torch
+    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    from ft_fsd_path_planning_torch.ops import beam_search as bs
+
+    steps: dict = {}
+    original = bench_torch.batched_step
+
+    def counting(cfg, states, frames):
+        b1, b2 = bc.launch_count, bs.launch_count
+        out = original(cfg, states, frames)
+        key = f"B={frames.cones.shape[0]} n_cones={cfg.shapes.n_cones}"
+        steps.setdefault(key, []).append((bc.launch_count - b1, bs.launch_count - b2))
+        return out
+
+    bench_torch.batched_step = counting
+    try:
+        with env(BENCH_ITERS="5", BENCH_LAT_FRAMES="30", BENCH_LARGE_BATCH="128", BENCH_REPLAY_ITERS="1"):
+            reset_counts()
+            line, paths = bench_torch.run(dev)
+            total = read_counts("bench_torch")
+    finally:
+        bench_torch.batched_step = original
+    log("bench_torch (BENCH_ITERS=5 BENCH_LAT_FRAMES=30 BENCH_LARGE_BATCH=128 BENCH_REPLAY_ITERS=1): " + json.dumps(line))
+    check(set(line) == set(BENCH_KEYS), f"bench keys {sorted(line)}")
+    for key in BENCH_KEYS:
+        value = line[key]
+        if isinstance(value, str):
+            check(bool(value), f"bench {key} is empty")
+        else:
+            check(isinstance(value, (int, float)) and np.isfinite(value) and value > 0, f"bench {key} = {value!r}")
+    check(line["replay_parity_dev_max_m"] < GOLDEN_MAX, f"bench replay parity max {line['replay_parity_dev_max_m']}")
+    check(paths.shape == (300, 40, 4), f"bench replay paths {tuple(paths.shape)}")
+    diff = lateral(paths, torch.tensor(facade_paths, device=dev))
+    log(f"bench replay_scan 300 frames: max lateral vs the PathPlanner replay {float(diff.max())!r} m")
+    check(float(diff.max()) < 1e-3, "bench_torch's replay_scan and PathPlanner disagree")
+    per_step = {k: {"B1": sorted({a for a, _ in v}), "B2": sorted({b for _, b in v}), "steps": len(v)} for k, v in steps.items()}
+    log(f"bench launches per batched_step (distinct values): {per_step}; whole run {total}")
+    check(total["B1 bare entry"] == 0, "the bench launched B1's bare entry")
+    return {"batch_step": per_step, "run": total}
+
+
+DEMO_LINE = re.compile(r"frames: (\d+)  mean: (\S+) ms  p50: (\S+) ms  p99: (\S+) ms")
+
+
+def phase_demo() -> dict:
+    """The replay CLI as a user starts it, on the session with and without
+    colour: exit 0, the frames line with the frames asked for and finite
+    times, both kernels launched."""
+    launches = {}
+    for label, extra, frames in (("colour", [], 40), ("no colour", ["--remove-color-info"], 20)):
+        cmd = [sys.executable, "-m", "ft_fsd_path_planning_torch.demo", str(SESSION), "--max-frames", str(frames), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        out = proc.stdout
+        log(f"CLI ({label}) exit {proc.returncode} in {wall!r} s: " + " | ".join(out.strip().splitlines()))
+        check(proc.returncode == 0, f"the CLI ({label}) failed:\n{proc.stderr[-4000:]}")
+        match = DEMO_LINE.search(out)
+        check(match is not None, f"no frames line from the CLI ({label})")
+        times = [float(match.group(i)) for i in (2, 3, 4)]
+        check(int(match.group(1)) == frames and all(np.isfinite(times)), f"CLI ({label}) frames line {match.group(0)}")
+        counts = json.loads(out.split("kernel launches: ", 1)[1].splitlines()[0])
+        check(counts["B1"] > 0 and counts["B2"] > 0, f"the CLI ({label}) did not launch both kernels: {counts}")
+        launches[label] = counts
+    return launches
+
+
+def _request(url: str, body: bytes | None = None) -> tuple[int, object]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read()
+            return r.status, json.loads(raw) if r.headers.get_content_type() == "application/json" else raw
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def phase_serve(dev) -> dict:
+    """The plan server in-process on 127.0.0.1 on the card: the page, the
+    fixtures, /plan on every fixture against a direct PathPlanner on the
+    card, session frames over two requests with the state carried, a new
+    planner for beam width 16, a malformed request (500) and a good one
+    after it (200). Returns the kernels' launches over the fixture
+    requests."""
+    import threading
+
+    from ft_fsd_path_planning_torch import PathPlanner
+    from ft_fsd_path_planning_torch.demo import serve
+
+    def direct(overrides: dict, frames: list) -> np.ndarray:
+        cfg = serve._build_config(overrides)
+        planner = PathPlanner(cfg.mission, config=cfg, device=dev)
+        return np.stack([
+            planner.calculate_path_in_global_frame(
+                [np.array(c, float).reshape(-1, 2) for c in f["slam_cones"]],
+                np.array(f["car_position"], float), np.array(f["car_direction"], float),
+            )
+            for f in frames
+        ])
+
+    def plan(config: dict, frames: list) -> np.ndarray:
+        status, body = _request(url + "/plan", json.dumps({"config": config, "frames": frames}).encode())
+        check(status == 200, f"/plan returned {status}: {body}")
+        return np.asarray(body["paths"])
+
+    server = serve.PlanServer(("127.0.0.1", 0), device=dev)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, page = _request(url + "/")
+        check(status == 200 and b"/plan" in page, "GET / did not return the page")
+        status, data = _request(url + "/scenarios")
+        fixtures = data["scenarios"]
+        check(status == 200 and len(fixtures) == 8 and set(data["knobs"]) == set(serve._KNOBS), "GET /scenarios")
+
+        reset_counts()
+        served = np.stack([plan({}, [f])[0] for f in fixtures.values()])
+        launches = read_counts("plan server, fixture requests")
+        want = direct({}, list(fixtures.values()))
+        err = float(np.abs(served - want).max())
+        log(f"plan server: {len(fixtures)} fixture requests, max |served - direct PathPlanner| {err!r} m; launches {launches}")
+        check(np.isfinite(served).all() and err <= 1e-4, "served fixture paths differ from the direct facade's")
+
+        session = json.loads(SESSION.read_bytes())[:20]
+        big = {"n_cones": REPLAY_N_CONES}
+        served = np.concatenate([plan(big, session[:10]), plan(big, session[10:])])
+        err = float(np.abs(served - direct(big, session)).max())
+        log(f"plan server: 20 session frames over two requests at n_cones {REPLAY_N_CONES}, max |served - direct 20-frame run| {err!r} m")
+        check(err <= 1e-4, "the server did not carry the planner's state across requests")
+
+        narrow = {"beam_width": 16}
+        before = len(server.planners)
+        reset_counts()
+        served = plan(narrow, [fixtures["hairpin"]])
+        narrow_launches = read_counts("plan server, beam width 16")
+        err = float(np.abs(served - direct(narrow, [fixtures["hairpin"]])).max())
+        log(f"plan server: beam_width 16 on a new planner ({before} -> {len(server.planners)} planners), max |served - direct| {err!r} m, launches {narrow_launches}")
+        check(len(server.planners) == before + 1 and err <= 1e-4, "beam_width 16 did not get its own planner, or differs")
+
+        status, body = _request(url + "/plan", b'{"frames": [{"car_position": [0.0, 0.0]}]}')
+        check(status == 500 and "slam_cones" in body["error"], f"a malformed request returned {status}")
+        check(np.isfinite(plan({}, [fixtures["straight"]])).all(), "the request after a malformed one failed")
+        log("plan server: malformed request -> 500 with the error, the next request -> 200")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the plan server's thread did not stop")
+    return launches
+
+
+def phase_export_viz(dev) -> dict:
+    """The viewer export on the card: every fixture and 10 session frames
+    (n_cones 256), paths of 40 finite points, viz_data.js under build/."""
+    from ft_fsd_path_planning_torch.demo import export_viz
+    from ft_fsd_path_planning_torch.demo.scenarios import ALL_SCENARIOS
+
+    out = ROOT / "build" / "viz"
+    reset_counts()
+    export_viz.main(["--out", str(out), "--max-session-frames", "10", "--device", str(dev)])
+    launches = read_counts("export_viz")
+    js = (out / "viz_data.js").read_text()
+    prefix = "window.VIZ_DATA = "
+    check(js.startswith(prefix) and (out / "interactive.html").exists(), "viz_data.js or interactive.html missing")
+    payload = json.loads(js[len(prefix):].rstrip().rstrip(";"))
+    frames = [*payload["scenarios"].values(), *payload["session"]]
+    check(set(payload["scenarios"]) == set(ALL_SCENARIOS) and len(payload["session"]) == 10, "viewer payload frames")
+    for frame in frames:
+        path = np.asarray(frame["path"], float)
+        check(path.shape == (40, 2) and np.isfinite(path).all(), "a viewer path is not 40 finite points")
+    log(f"export_viz: {len(payload['scenarios'])} fixtures and {len(payload['session'])} session frames, {len(js)} B of viz_data.js; launches {launches}")
+    return launches
+
+
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -1206,11 +1423,16 @@ def main() -> int:
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
+    timed(phase_loader)
     step_launches = timed(phase_batched_step, cfg, dev)
-    replay_launches = timed(phase_replay, replay_cfg, dev)
+    replay_launches, facade_paths = timed(phase_replay, replay_cfg, dev)
+    bench_launches = timed(phase_bench, dev, facade_paths)
     mission_launches = timed(phase_mission_replay, dev)
     mission_batch_launches = timed(phase_mission_batched_step, dev)
     global_path_launches = timed(phase_global_path, dev)
+    cli_launches = timed(phase_demo)
+    serve_launches = timed(phase_serve, dev)
+    viz_launches = timed(phase_export_viz, dev)
     log(f"all phases, the kernels' build included: {time.perf_counter() - START!r} s of the {TIME_LIMIT_S} s a run may take")
     # B1's two entries are one kernel: the first row counts its launches
     # through either entry and times the bare one, the second is the fused
@@ -1227,6 +1449,16 @@ def main() -> int:
             f"{k}, {start}": v[start][count] for k, v in mission_batch_launches.items() for start in v
         }
         kernel["launches_global_path"] = {k: v[count] for k, v in global_path_launches.items()}
+        # the front doors: bench_torch.py (per batched_step and the whole run), the replay CLI
+        # (40 frames in colour, 20 without), the plan server's eight fixture requests, the viewer export
+        per_step = count.split()[0]  # the main path takes B1's fused entry alone (checked in phase_bench)
+        kernel["launches_bench"] = {
+            "run": bench_launches["run"][count],
+            "per batched_step": {k: v[per_step] for k, v in bench_launches["batch_step"].items()},
+        }
+        kernel["launches_cli"] = {k: v[per_step] for k, v in cli_launches.items()}
+        kernel["launches_serve_fixtures"] = serve_launches[count]
+        kernel["launches_export_viz"] = viz_launches[count]
     b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
     log(json.dumps({"kernels": [kernel for kernel, _ in rows]}))

@@ -466,5 +466,8 @@ extern "C" int fused_beam_search_f32(const float* table, const float* feats0, co
   if (k == 32 && l == 12 && c == 5) {
     return launch<32, 12, 5>(table, feats0, alive0, params, out_feats, out_alive, g, n, *consts, s);
   }
+  if (k == 16 && l == 12 && c == 5) {  // the plan server's beam-width knob
+    return launch<16, 12, 5>(table, feats0, alive0, params, out_feats, out_alive, g, n, *consts, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

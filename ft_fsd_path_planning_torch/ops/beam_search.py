@@ -43,8 +43,9 @@ P_CARX, P_CARY, P_DIRX, P_DIRY, P_SIGN, P_TLEN = range(6)
 N_PARAMS = 6
 
 #: (K, L, C) triples the kernel is instantiated for: the `SortingConfig`
-#: defaults (beam_width, max_length, max_n_neighbors)
-KERNEL_SHAPES = ((32, 12, 5),)
+#: defaults (beam_width, max_length, max_n_neighbors), and beam width 16,
+#: which the plan server's explorer offers; another triple raises on the card
+KERNEL_SHAPES = ((32, 12, 5), (16, 12, 5))
 
 #: gate constants the search reads, by the names of `models/sorting.py::_gate_items`
 GATE_NAMES = (

@@ -154,15 +154,26 @@ def test_replay_from_jax_state_agrees(session):
 
 def test_import_loads_no_jax():
     modules = [m.name for m in pkgutil.walk_packages(ft_fsd_path_planning_torch.__path__, "ft_fsd_path_planning_torch.")]
+    # bench_torch.py and chip_smoke.py lie outside the package, at the root
     code = (
         "import importlib, sys\n"
-        f"for name in {modules!r}:\n"
+        f"for name in {modules + ['bench_torch', 'chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ft_fsd_path_planning_tpu')))\n"
         "assert not bad, bad\n"
+        "print('imported', len(sys.modules))\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
-    for name in ("parallel.batch", "assets.known_paths", "models.relocalization", "utils.timer", "profile_step"):
+    # the CLI's __main__ is imported with arguments it would refuse: it must not run
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--no-such-flag"], cwd=REPO, check=True, timeout=120,
+        capture_output=True, text=True,
+    )
+    assert proc.stdout.startswith("imported") and "mission:" not in proc.stdout, proc.stdout
+    for name in (
+        "parallel.batch", "assets.known_paths", "models.relocalization", "utils.timer", "profile_step",
+        "types", "native.loader", "demo.__main__", "demo.json_demo", "demo.make_session",
+        "demo.scenarios", "demo.serve", "demo.export_viz",
+    ):
         assert f"ft_fsd_path_planning_torch.{name}" in modules
 
 
@@ -175,6 +186,18 @@ def test_entry_points_refuse_without_gpu(monkeypatch):
         tscen.make_frame_batch(cfg, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PathPlanner(MissionTypes.trackdrive)
+    # the front doors: bench, replay CLI, plan server, viewer export
+    import bench_torch
+    from ft_fsd_path_planning_torch.demo import export_viz, json_demo, serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_torch.run()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        json_demo.main([str(SESSION), "--max-frames", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.PlanServer(("127.0.0.1", 0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_viz.build_payload(max_session_frames=1)
     for mission in MissionTypes:  # every mission: refused without a GPU, accepted on the CPU
         with pytest.raises(RuntimeError, match="device='cpu'"):
             PathPlanner(mission)

@@ -30,8 +30,17 @@ against its Python engine), ``bench_torch.py`` in-process at reduced depth
 (its JSON line; its ``replay_scan`` over all 300 frames must give the
 facade replay's paths), the replay CLI as a subprocess with and without
 colour, the plan server on 127.0.0.1 (fixtures against a direct
-``PathPlanner``, state carried across requests, a malformed request) and
-the viewer export. ``--kernels-only`` stops after the kernels' own phases. It checks the
+``PathPlanner``, state carried across requests, the knobs that pick B2's
+other instantiations and one that picks the sorter's scan, a malformed
+request) and the viewer export. B2 is held against its plain version at
+every instantiation: the sorter's default (32, 12, 5) and the general ones
+of beam width 8, 16, 32 and 64, at (8, 8, 5), (16, 12, 5), (64, 16, 5) and
+(32, 32, 7); the sort cache's hit sequence over the session is compared
+with the JAX package's frame by frame. Then the sharded step against
+``batched_step`` on a one-rank NCCL group and on two gloo ranks in two
+processes on this card, ``dryrun_multichip(2)`` at ``large_map_config``, a
+short ``profile_device`` run and the stage viewer's data half.
+``--kernels-only`` stops after the kernels' own phases. It checks the
 trackdrive paths against the reference planner's golden paths, and prints
 one JSON line of kernel measurements and, last, one JSON line with the
 device. Any failed phase ends the run with a non-zero exit
@@ -82,6 +91,24 @@ MISSION_ROT_TOL, MISSION_TRANS_TOL = 1e-4, 1e-3  # relocalization_info vs the JA
 # apart from as few as three circles; acceleration: a line through a row)
 BATCH_ROT_TOL = {"skidpad": 2e-2, "acceleration": 1e-3}
 TIME_LIMIT_S = 1200  # what the whole run, the kernels' build included, must stay inside
+# B2's other shapes (beam_width, max_length, max_n_neighbors), one a general
+# instantiation: the tiny configuration of the distributed tests, the plan
+# server's beam width 16, beam width 64 at max length 16, and the bounds of
+# the run-time max length and neighbour count
+B2_SHAPES = ((8, 8, 5), (16, 12, 5), (64, 16, 5), (32, 32, 7))
+B2_DEFAULT_MS = 0.1309  # B2 at (32, 12, 5), G = 512 from a CUDA graph before L and C became run-time values (the top of its range)
+B2_DEFAULT_GROWTH = 1.10  # how much slower the exact default instantiation may have become
+SORT_CACHE_GOLDEN = ROOT / "ft_fsd_path_planning_torch/assets/sort_cache_golden.npz"
+# session frames whose largest cone distance lies within 1 mm of the sort
+# cache's 0.1 m threshold (hits 18 ... 247, misses 211, 243, 293): a build may
+# flip these and no others against the JAX package's hit sequence
+SORT_CACHE_NEAR_THRESHOLD = (18, 58, 129, 199, 206, 211, 227, 243, 247, 293)
+SHARDED_LATERAL_TOL = 0.01  # sharded step vs batched_step, metres
+METRICS_REL_TOL = 1e-5  # reduced metrics (sum / count) vs batch_metrics (mean)
+# the plan server's knobs that pick another B2 instantiation, and beam width
+# 10, which the kernel does not take (the sorter's scan runs)
+SERVE_KERNEL_KNOBS = ({"beam_width": 8}, {"beam_width": 64}, {"max_length": 8}, {"max_length": 16})
+SERVE_SCAN_KNOB = {"beam_width": 10}
 START = time.perf_counter()
 BROKEN_FACTORIZATION_FRAMES = (20, 22)  # acceleration session frames whose hairpin fit breaks a float32 factorization down
 BATCH_ROT_32_64_TOL = 1e-3  # the float32 step's rotation vs the same attempt in float64 on the same lane, rad
@@ -637,6 +664,11 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
         f"bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B -> {bytes_ms!r} ms, {flops} flop -> {ops_ms!r} ms); "
         "no PyTorch call computes this function"
     )
+    log(
+        f"B2's exact default instantiation: {ms!r} ms at G={g}, against {B2_DEFAULT_MS} ms before L and C became "
+        f"run-time values (the bar: {B2_DEFAULT_GROWTH} times that)"
+    )
+    check(ms <= B2_DEFAULT_MS * B2_DEFAULT_GROWTH, f"B2 at the default shape grew to {ms} ms")
     _, args1, kwargs1 = cases[1]
     eager_ms1 = cuda_ms(lambda: bs.fused_beam_search_cuda(*args1, **kwargs1), 100)
     ms1 = graph_ms(lambda: bs.fused_beam_search_cuda(*args1, **kwargs1), 100)
@@ -666,6 +698,60 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
         "one_by_one_ms": eager_ms,
         "one_by_one_one_frame_ms": eager_ms1,
     }
+
+
+def phase_b2_shapes(cfg, dev) -> list[dict]:
+    """B2 at the shapes of B2_SHAPES: the searches of one batched_step at
+    B = 256 with the sorter at that shape are captured, the kernel held
+    against its plain version (every row and alive equal bit for bit) and
+    timed from a CUDA graph beside its bound and the plain version."""
+    from ft_fsd_path_planning_torch.ops import beam_search as bs
+    from ft_fsd_path_planning_torch.parallel import batch, scenarios
+
+    rows = []
+    for k, l, c in B2_SHAPES:
+        shaped = dataclasses.replace(
+            cfg, sorting=dataclasses.replace(cfg.sorting, beam_width=k, max_length=l, max_n_neighbors=c)
+        )
+        frames = scenarios.make_frame_batch(shaped, BATCH, seed=1, device=dev)
+        args, kwargs = capture_searches(
+            lambda: batch.batched_step(shaped, batch.make_batch_state(shaped, BATCH, dev), frames)  # noqa: B023
+        )
+        check((kwargs["k"], kwargs["l"], kwargs["c"]) == (k, l, c), f"the sorter searched at {kwargs}, not {(k, l, c)}")
+        got_f, got_a = bs.fused_beam_search_cuda(*args, **kwargs)
+        torch.cuda.synchronize()
+        want_f, want_a = bs.fused_beam_search_plain(*args, **kwargs)
+        err, same = same_values(got_f, want_f)
+        alive_equal = bool(torch.equal(got_a, want_a))
+        g, n = args[0].shape[:2]
+        ms = graph_ms(lambda: bs.fused_beam_search_cuda(*args, **kwargs), 100)  # noqa: B023
+        plain_ms = cuda_ms(lambda: bs.fused_beam_search_plain(*args, **kwargs), 3)  # noqa: B023
+        nbytes = bs.search_bytes(g, n, k, l, c)
+        flops = g * bs.search_flops(n, k, l, c)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        log(
+            f"B2 {bs.instantiation(k, l, c)} at (K, L, C) = {(k, l, c)}, G={g} N={n}: max|kernel - plain| {err!r} "
+            f"(non-finite entries the same {same}), alive equal {alive_equal} ({int(got_a.sum())} survivors); "
+            f"{ms!r} ms from a CUDA graph, plain {plain_ms!r} ms, bound {max(bytes_ms, ops_ms)!r} ms "
+            f"({nbytes} B -> {bytes_ms!r} ms, {flops} flop -> {ops_ms!r} ms)"
+        )
+        check(same and err == 0.0 and alive_equal, f"B2 disagrees with its plain version at {(k, l, c)}: {err}")
+        rows.append({
+            "name": f"fused_beam_search {bs.instantiation(k, l, c)}",
+            "route": "cuda",
+            "source": "ft_fsd_path_planning_torch/csrc/beam_search.cu",
+            "replaces": "ft_fsd_path_planning_tpu/ops/pallas/beam_search.py:108",
+            "shape": [k, l, c],
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "timed": f"CUDA graph replay of 100 launches at G={g}, N={n}; plain_ms launched one by one",
+        })
+    return rows
 
 
 def step_ms(step, reps: int) -> float:
@@ -817,9 +903,10 @@ def phase_batched_step(cfg, dev) -> dict:
     return launches
 
 
-def replay_facade(planner, args, golden, label: str) -> tuple[np.ndarray, dict]:
+def replay_facade(planner, args, golden, label: str) -> tuple[np.ndarray, dict, list[bool]]:
     """Drive the session through ``planner``; check shape, finiteness and the
-    golden bars; returns (paths, both kernels' launches)."""
+    golden bars; returns (paths, both kernels' launches, whether each frame
+    hit the sort cache)."""
     reset_counts()
     paths, lat_ms, hit = [], [], []
     for a in args:
@@ -845,7 +932,7 @@ def replay_facade(planner, args, golden, label: str) -> tuple[np.ndarray, dict]:
         )
     check(float(devs.max()) < GOLDEN_MAX, f"{label} exceeds the 5 cm bar")
     check(float(np.median(devs)) < GOLDEN_MEDIAN, f"{label} median exceeds 1 cm")
-    return paths, launches
+    return paths, launches, list(hit)
 
 
 @contextlib.contextmanager
@@ -920,13 +1007,22 @@ def phase_replay(cfg, dev) -> tuple[dict, np.ndarray]:
     warm.calculate_path_in_global_frame(*args[0])
 
     planner = PathPlanner(MissionTypes.trackdrive, config=cfg, device=dev)
-    paths, launches = replay_facade(planner, args, golden["paths_plain"], "PathPlanner replay")
+    paths, launches, _ = replay_facade(planner, args, golden["paths_plain"], "PathPlanner replay")
 
     cached_cfg = dataclasses.replace(cfg, experimental_performance_improvements=True)
     cached = PathPlanner(MissionTypes.trackdrive, config=cached_cfg, device=dev)
     with similarity_log() as similarity:
-        _, cached_launches = replay_facade(cached, args, golden["paths_cached"], "PathPlanner replay with the sort cache")
+        _, cached_launches, hits = replay_facade(cached, args, golden["paths_cached"], "PathPlanner replay with the sort cache")
     report_similarity(similarity, len(args))
+    want = np.load(SORT_CACHE_GOLDEN)["hit"]
+    differ = np.nonzero(np.asarray(hits) != want)[0].tolist()
+    log(
+        f"sort cache hit sequence vs the JAX package's ({SORT_CACHE_GOLDEN.name}, {int(want.sum())} hits): "
+        f"{len(hits)} frames compared, frames that differ {differ}; allowed, within 1 mm of the threshold: "
+        f"{list(SORT_CACHE_NEAR_THRESHOLD)}"
+    )
+    check(len(hits) == len(want), "the replay and the golden hit sequence differ in length")
+    check(set(differ) <= set(SORT_CACHE_NEAR_THRESHOLD), f"the sort cache hit differently on frames {differ}")
     ref_hits, ref_checks = (int(x) for x in golden["ref_cache_hits"])
     log(
         f"sort cache: {cached.sort_cache_hits} of {len(args)} frames hit (both sides at once); "
@@ -1313,6 +1409,9 @@ def phase_serve(dev) -> dict:
 
     from ft_fsd_path_planning_torch import PathPlanner
     from ft_fsd_path_planning_torch.demo import serve
+    from ft_fsd_path_planning_torch.ops import beam_search as bs
+
+    knob_counts: dict = {}  # B2's launches by instantiation over the knob requests
 
     def direct(overrides: dict, frames: list) -> np.ndarray:
         cfg = serve._build_config(overrides)
@@ -1361,9 +1460,39 @@ def phase_serve(dev) -> dict:
         reset_counts()
         served = plan(narrow, [fixtures["hairpin"]])
         narrow_launches = read_counts("plan server, beam width 16")
+        knob_counts.update(bs.launch_count_by_instantiation)
         err = float(np.abs(served - direct(narrow, [fixtures["hairpin"]])).max())
         log(f"plan server: beam_width 16 on a new planner ({before} -> {len(server.planners)} planners), max |served - direct| {err!r} m, launches {narrow_launches}")
         check(len(server.planners) == before + 1 and err <= 1e-4, "beam_width 16 did not get its own planner, or differs")
+
+        # B2's other instantiations through the server's knobs, and beam width
+        # 10, which the kernel does not take: the sorter's scan, chosen by
+        # shape before any launch, gives what a planner forced to the scan gives
+        for knob in SERVE_KERNEL_KNOBS:
+            reset_counts()
+            served = plan(knob, [fixtures["hairpin"], fixtures["corner_missing_blue"]])
+            knob_launches = read_counts(f"plan server, {knob}")
+            knob_launches["B2 by instantiation"] = dict(bs.launch_count_by_instantiation)
+            sorting_cfg = serve._build_config(knob).sorting
+            want_inst = bs.instantiation(sorting_cfg.beam_width, sorting_cfg.max_length, sorting_cfg.max_n_neighbors)
+            err = float(np.abs(served - direct(knob, [fixtures["hairpin"], fixtures["corner_missing_blue"]])).max())
+            with env(FT_FSD_FUSED_BEAM="0"):
+                scan_err = float(np.abs(served - direct(knob, [fixtures["hairpin"], fixtures["corner_missing_blue"]])).max())
+            log(
+                f"plan server: {knob} -> 200, max |served - direct PathPlanner| {err!r} m, against the sorter's "
+                f"scan {scan_err!r} m; launches {knob_launches}"
+            )
+            check(np.isfinite(served).all() and err <= 1e-4, f"{knob}: served paths differ from the direct facade's")
+            check(knob_launches["B2 by instantiation"].get(want_inst, 0) > 0, f"{knob} did not launch B2 {want_inst}")
+            for inst, n in knob_launches["B2 by instantiation"].items():
+                knob_counts[inst] = knob_counts.get(inst, 0) + n
+        reset_counts()
+        served = plan(SERVE_SCAN_KNOB, [fixtures["hairpin"], fixtures["corner_missing_blue"]])
+        scan_launches = read_counts(f"plan server, {SERVE_SCAN_KNOB}", sorts=False)
+        with env(FT_FSD_FUSED_BEAM="0"):
+            err = float(np.abs(served - direct(SERVE_SCAN_KNOB, [fixtures["hairpin"], fixtures["corner_missing_blue"]])).max())
+        log(f"plan server: {SERVE_SCAN_KNOB} -> 200 through the sorter's scan, launches {scan_launches}, max |served - FT_FSD_FUSED_BEAM=0 facade| {err!r} m")
+        check(np.isfinite(served).all() and err <= 1e-4, f"{SERVE_SCAN_KNOB}: served paths differ from the scan's")
 
         status, body = _request(url + "/plan", b'{"frames": [{"car_position": [0.0, 0.0]}]}')
         check(status == 500 and "slam_cones" in body["error"], f"a malformed request returned {status}")
@@ -1374,6 +1503,7 @@ def phase_serve(dev) -> dict:
         server.server_close()
         thread.join(timeout=60)
     check(not thread.is_alive(), "the plan server's thread did not stop")
+    launches["B2 by instantiation, knob requests"] = knob_counts
     return launches
 
 
@@ -1400,6 +1530,146 @@ def phase_export_viz(dev) -> dict:
     return launches
 
 
+def compare_sharded(label: str, paths: torch.Tensor, metrics: dict, want, want_metrics, same_rows: bool) -> float:
+    """Hold a sharded run's stitched paths and reduced metrics against
+    ``batched_step``'s; returns the max lateral deviation. With
+    ``same_rows`` (one rank: the same batch as ``batched_step``) every
+    metric equals batch_metrics' to METRICS_REL_TOL; split over ranks, each
+    rank's smaller batch reassociates float sums, a frame's 20 m trim can
+    keep or drop its last 0.165 m sample, and the mean path length is held
+    to 0.1 m and the mean curvature to 1% (tests/test_distributed.py's
+    bar), the counts and rates exactly."""
+    dev_m = float(lateral(paths.to(want.path.device), want.path).max())
+    rel = {k: abs(metrics[k] - float(v)) / max(abs(float(v)), 1e-12) for k, v in want_metrics._asdict().items()}
+    log(f"{label}: max lateral vs batched_step {dev_m!r} m; metrics {metrics}; relative difference from batch_metrics {rel}")
+    check(paths.shape == want.path.shape and bool(torch.isfinite(paths).all()), f"{label}: bad paths")
+    check(dev_m < SHARDED_LATERAL_TOL, f"{label}: paths differ from batched_step's")
+    if same_rows:
+        check(max(rel.values()) <= METRICS_REL_TOL, f"{label}: metrics differ from batch_metrics")
+    else:
+        exact = ("n_frames", "solve_success_rate", "too_far_rate", "relocalized_rate", "spline_budget_hit_rate")
+        check(all(rel[k] <= METRICS_REL_TOL for k in exact), f"{label}: counts or rates differ from batch_metrics")
+        check(abs(metrics["mean_path_length"] - float(want_metrics.mean_path_length)) <= 0.1, f"{label}: mean path length")
+        check(rel["mean_abs_curvature"] <= 1e-2, f"{label}: mean curvature")
+    return dev_m
+
+
+def phase_distributed(cfg, dev) -> dict:
+    """The sharded step at the default configuration, global B = 256, against
+    ``batched_step``: a one-rank NCCL group in this process, then a two-rank
+    gloo group of two processes on this card (NCCL refuses two ranks on one
+    card), then ``dryrun_multichip(2)`` at ``large_map_config``. Returns the
+    kernels' launches per rank."""
+    import torch.distributed as dist
+
+    from ft_fsd_path_planning_torch.parallel import batch, dryrun, scenarios, worker
+    from ft_fsd_path_planning_torch.parallel.distributed import (
+        global_mesh,
+        host_local_slice,
+        initialize_distributed,
+        make_global_batch,
+        make_global_state,
+    )
+    from ft_fsd_path_planning_torch.models.planner import FrameInput
+
+    frames = scenarios.make_frame_batch(cfg, BATCH, seed=0, device=dev)
+    want, _ = batch.batched_step(cfg, batch.make_batch_state(cfg, BATCH, dev), frames)
+    want_metrics = batch.batch_metrics(want)
+
+    initialize_distributed(f"tcp://localhost:{worker.free_port()}", 1, 0, backend="nccl", device=dev)
+    try:
+        mesh = global_mesh(device=dev)
+        check(dist.get_backend(mesh.group) == "nccl" and mesh.size == 1, "not a one-rank NCCL group")
+        lo, hi = host_local_slice(BATCH)
+        local = FrameInput(*(a[lo:hi] for a in scenarios.make_frame_batch_numpy(cfg, BATCH, seed=0)))
+        step = batch.sharded_batched_step(cfg, mesh)
+        states, gframes = make_global_state(cfg, mesh, BATCH), make_global_batch(mesh, local, BATCH)
+        reset_counts()
+        outs, _, metrics = step(states, gframes)
+        torch.cuda.synchronize()
+        nccl_launches = read_counts("sharded_batched_step, one NCCL rank")
+    finally:
+        dist.destroy_process_group()
+    nccl_dev = compare_sharded(
+        f"sharded_batched_step, one NCCL rank, B={BATCH} (launches {nccl_launches})", outs.path,
+        {k: float(v) for k, v in metrics._asdict().items()}, want, want_metrics, same_rows=True,
+    )
+
+    out = ROOT / "build" / "smoke_ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    worker.spawn("step", 2, device=str(dev), backend="gloo", timeout=600, out=str(out), config="default",
+                 global_batch=BATCH, seed=0)
+    reports = [json.loads((out / f"rank_{r}.json").read_text())["configs"]["default"] for r in (0, 1)]
+    paths = torch.cat([torch.as_tensor(np.load(out / f"paths_default_{r}.npy")) for r in (0, 1)])
+    check([(r["lo"], r["hi"]) for r in reports] == [(0, BATCH // 2), (BATCH // 2, BATCH)], "the ranks' slices")
+    check(reports[0]["metrics"] == reports[1]["metrics"], "the two ranks' metrics differ")
+    gloo_launches = [r["launches"] for r in reports]
+    for rank, launches in enumerate(gloo_launches):
+        check(launches["B1"] > 0 and launches["B2"] == 1, f"gloo rank {rank} launched {launches}")
+    gloo_dev = compare_sharded(
+        f"sharded_batched_step, two gloo ranks on one card, global B={BATCH} (launches per rank {gloo_launches})",
+        paths, reports[0]["metrics"], want, want_metrics, same_rows=False,
+    )
+
+    line = dryrun.dryrun_multichip(2, device=dev, timeout=600)
+    log(f"dryrun_multichip(2) at large_map_config: {line}")
+    return {"nccl_one_rank": nccl_launches, "gloo_two_ranks": gloo_launches,
+            "lateral_max_m": {"nccl_one_rank": nccl_dev, "gloo_two_ranks": gloo_dev}}
+
+
+def phase_profile(cfg, dev) -> None:
+    """A short profile_device run (B = 32): every kernel and every sync of
+    the step credited to a source line, the lines adding up to the step's
+    totals, which agree with what the profiler and the sync debug mode count
+    for the same step on their own (kernels within 0.1%, syncs within 2)."""
+    from ft_fsd_path_planning_torch import profile_device
+    from ft_fsd_path_planning_torch.parallel import batch, scenarios
+
+    b = 32
+    out = profile_device.profile_step("trackdrive", b, N_CONES, dev, top=5)
+    frames = scenarios.make_frame_batch(cfg, b, seed=0, device=dev)
+    state = batch.make_batch_state(cfg, b, dev)
+    step = lambda: batch.batched_step(cfg, state, frames)  # noqa: E731
+    kernels, syncs = kernel_count(step), count_syncs(step)
+    lines = sum(v["kernels"] for v in out["all_lines"].values())
+    sync_lines = sum(v["syncs"] for v in out["sync_lines"].values())
+    log(
+        f"profile_device B={b}: {out['total']} kernels over {out['lines']} lines (sum {lines}; not under a "
+        f"range {out['unowned']}), {out['syncs']} syncs over {len(out['sync_lines'])} lines (sum {sync_lines}); "
+        f"the same step counted apart: {kernels} kernels, {syncs} syncs; by stage {out['by_stage']}; "
+        f"fitpack lines by syncs {out['fitpack_sync_lines']}"
+    )
+    check(lines == out["total"] and sync_lines == out["syncs"], "profile_device's lines do not add up to its totals")
+    log("profile_device syncs by line: " + json.dumps({k: v["syncs"] for k, v in out["sync_lines"].items()}))
+    # the profiled step may launch a kernel or make a sync more or fewer than
+    # the same step on its own (the profiler's own work, the allocator): a
+    # few, not a stage's worth
+    check(abs(out["total"] - kernels) <= max(2, kernels // 1000) and abs(out["syncs"] - syncs) <= 2,
+          "profile_device's totals differ from the step's")
+
+
+def phase_stage_viz(dev) -> dict:
+    """stage_viz's data half on the card for two scenarios: finite arrays of
+    the expected shapes (no drawing: the card's machine need not have
+    matplotlib)."""
+    from ft_fsd_path_planning_torch.demo import stage_viz
+
+    reset_counts()
+    for name in ("hairpin", "simple_corner"):
+        data = stage_viz.stage_data(name, device=dev)
+        beams = data["beam"].values()
+        check(data["path"].shape == (40, 4) and np.isfinite(data["path"]).all(), f"stage_data {name}: path")
+        check(all(b["configs"].ndim == 2 and b["valid"].any() and np.isfinite(b["costs"][b["valid"]]).all() for b in beams),
+              f"stage_data {name}: beam pool")
+        check(all(len(e) > 0 and e.shape[1] == 2 for e in data["adjacency"].values()), f"stage_data {name}: adjacency")
+        log(
+            f"stage_data {name} on the card: path (40, 4) finite, adjacency edges "
+            f"{[len(e) for e in data['adjacency'].values()]}, valid pool {[int(b['valid'].sum()) for b in beams]}, "
+            f"matches {len(data['matches']['left_to_right'])}/{len(data['matches']['right_to_left'])}"
+        )
+    return read_counts("stage_data")
+
+
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -1420,6 +1690,7 @@ def main() -> int:
     b1_bare, b1_fused = phase_b1_vs_plain(cfg, dev)
     timed(phase_b1_vs_plain_missions, dev)
     b2 = phase_b2_vs_plain(cfg, replay_cfg, dev)
+    b2_shapes = timed(phase_b2_shapes, cfg, dev)
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
@@ -1433,6 +1704,9 @@ def main() -> int:
     cli_launches = timed(phase_demo)
     serve_launches = timed(phase_serve, dev)
     viz_launches = timed(phase_export_viz, dev)
+    distributed_launches = timed(phase_distributed, cfg, dev)
+    timed(phase_profile, cfg, dev)
+    stage_viz_launches = timed(phase_stage_viz, dev)
     log(f"all phases, the kernels' build included: {time.perf_counter() - START!r} s of the {TIME_LIMIT_S} s a run may take")
     # B1's two entries are one kernel: the first row counts its launches
     # through either entry and times the bare one, the second is the fused
@@ -1459,9 +1733,21 @@ def main() -> int:
         kernel["launches_cli"] = {k: v[per_step] for k, v in cli_launches.items()}
         kernel["launches_serve_fixtures"] = serve_launches[count]
         kernel["launches_export_viz"] = viz_launches[count]
+        # the sharded step at B = 256: one NCCL rank, each of two gloo ranks; the stage viewer's data
+        kernel["launches_sharded_step"] = {
+            "nccl one rank": distributed_launches["nccl_one_rank"][per_step],
+            "gloo two ranks": [r[per_step] for r in distributed_launches["gloo_two_ranks"]],
+        }
+        kernel["launches_stage_viz"] = stage_viz_launches[count]
+    # B2's other instantiations: launched by the plan server's knob requests
+    knob_counts = serve_launches["B2 by instantiation, knob requests"]
+    for row in b2_shapes:
+        row["launches"] = knob_counts.get(row["name"].split(" ", 1)[1], 0)
+        row["launches_path"] = "the plan server's knob requests (beam width 8, 16, 64; max length 8, 16)"
+        check(row["launches"] > 0, f"{row['name']} was launched no time by the plan server's knob requests")
     b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
-    log(json.dumps({"kernels": [kernel for kernel, _ in rows]}))
+    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

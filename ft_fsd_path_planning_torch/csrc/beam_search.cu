@@ -38,8 +38,17 @@
 // (G, F, K), alive (G, K), params (G, 6) = [car x, car y, dir x, dir y,
 // side sign, target length]; all float32, contiguous, any G >= 1, N at run
 // time. The state (F x K), the K table rows of the step and the sorted keys
-// live in shared memory (about 8 KB); the node table stays in global memory
-// and is read through the read-only path, one row per beam per step.
+// live in shared memory (8.4 KB at the default shape, 24 KB at K = 64 with
+// the bounds below); the node table stays in global memory and is read
+// through the read-only path, one row per beam per step.
+//
+// Shapes: the beam width K is a template parameter, K in {8, 16, 32, 64}
+// (64 to 512 threads); the max length L and the neighbour count C are run-time
+// values up to MAX_L = 32 and MAX_C = 7 (a beam's C children and its parent
+// share one group of eight lanes). Arrays indexed by a config position are
+// sized by the bound and their loops guarded by q < l, so they stay in
+// registers. The sorter's default (K, L, C) = (32, 12, 5) has its own exact
+// instantiation, in which L and C are compile-time constants.
 //
 // Arithmetic: this file is compiled with -fmad=false, so no product and sum
 // is contracted into an FMA, and every expression below is evaluated in the
@@ -62,8 +71,8 @@
 // chain of L - 1 steps. Several searches per block are left for later work.
 //
 // C interface: fused_beam_search_f32 returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for a (K, L, C) that has
-// no instantiation.
+// launch (0 on success), or cudaErrorInvalidValue for a (K, L, C) outside the
+// shapes above (ops/beam_search.py::kernel_supports says which those are).
 
 #include <cuda_runtime.h>
 
@@ -164,6 +173,8 @@ constexpr unsigned long long kNoEntry = ~0ull;  // key of a lane that holds no p
 constexpr unsigned int kFullWarp = 0xffffffffu;
 constexpr int kGroup = 8;                    // lanes per beam: C children, the parent, the rest idle
 constexpr int kBeamsPerWarp = 32 / kGroup;
+constexpr int MAX_L = 32;                    // bound of the run-time max length
+constexpr int MAX_C = kGroup - 1;            // bound of the run-time neighbour count
 
 // ascending bitonic sort of one key per lane across the warp
 __device__ __forceinline__ unsigned long long warp_sort(unsigned long long key, int lane) {
@@ -179,37 +190,52 @@ __device__ __forceinline__ unsigned long long warp_sort(unsigned long long key, 
   return key;
 }
 
-// number of keys below `key` in a sorted list of 32 whose last is kNoEntry
+// number of keys below `key` in a sorted list of 32. While C < 7 a group
+// holds an idle lane, so the last key of every list is kNoEntry and five
+// probes find the count (0..31); at C = 7 every lane holds an entry, and a
+// sixth probe counts the last key too
+template <bool kFullGroups>
 __device__ __forceinline__ int count_below(const unsigned long long* sorted, unsigned long long key) {
   int n = 0;
 #pragma unroll
   for (int step = 16; step > 0; step >>= 1) {
     if (sorted[n + step - 1] < key) n += step;
   }
+  if constexpr (kFullGroups) n += sorted[n] < key ? 1 : 0;
   return n;
 }
 
-template <int K, int L, int C>
+// LB and CB bound the run-time max length l and neighbour count c; with
+// kExact they are l and c themselves, known when compiling
+template <int K, int LB, int CB, bool kExact>
 __global__ void __launch_bounds__(K * kGroup)
 beam_search_kernel(const float* __restrict__ table, const float* __restrict__ feats0,
                    const float* __restrict__ alive0, const float* __restrict__ params,
-                   float* __restrict__ out_feats, float* __restrict__ out_alive, int n,
-                   const Consts cs) {
-  constexpr int F = L + 16;
+                   float* __restrict__ out_feats, float* __restrict__ out_alive, int n, int l_arg,
+                   int c_arg, const Consts cs) {
+  constexpr int FB = LB + 16;
+  constexpr int RB = 4 * CB;
   constexpr int T = K * kGroup;  // threads
   constexpr int W = T / 32;      // warps
-  constexpr int R = 4 * C;
-  static_assert(C + 1 <= kGroup, "a beam's children and its parent share one group of lanes");
+  static_assert(CB + 1 <= kGroup, "a beam's children and its parent share one group of lanes");
   static_assert(K % kBeamsPerWarp == 0, "whole warps");
+  const int L = kExact ? LB : l_arg;
+  const int C = kExact ? CB : c_arg;
+  const int F = L + 16;
+  const int R = 4 * C;
   // feature rows after the configs
-  constexpr int LEN = L, DONE = L + 1, ANGLE = L + 2, UNDER = L + 3, RESID = L + 4, INIT = L + 5,
-                WRONG = L + 6, LAST_IDX = L + 7, LAST_X = L + 8, LAST_Y = L + 9, PREV_X = L + 10,
-                PREV_Y = L + 11, PREV2_X = L + 12, PREV2_Y = L + 13, FIRST_X = L + 14,
-                FIRST_Y = L + 15;
+  const int LEN = L, DONE = L + 1, ANGLE = L + 2, UNDER = L + 3, RESID = L + 4, INIT = L + 5,
+            WRONG = L + 6, LAST_IDX = L + 7, LAST_X = L + 8, LAST_Y = L + 9, PREV_X = L + 10,
+            PREV_Y = L + 11, PREV2_X = L + 12, PREV2_Y = L + 13, FIRST_X = L + 14,
+            FIRST_Y = L + 15;
+  // the same rows as positions in a pool entry's `tail`, which holds them in registers
+  constexpr int T_LEN = 0, T_DONE = 1, T_ANGLE = 2, T_UNDER = 3, T_RESID = 4, T_INIT = 5,
+                T_WRONG = 6, T_LAST_IDX = 7, T_LAST_X = 8, T_LAST_Y = 9, T_PREV_X = 10,
+                T_PREV_Y = 11, T_PREV2_X = 12, T_PREV2_Y = 13, T_FIRST_X = 14, T_FIRST_Y = 15;
 
-  __shared__ float s_feats[F][K];
+  __shared__ float s_feats[FB][K];
   __shared__ float s_alive[K];
-  __shared__ float s_row[K][R + 1];  // one table row per beam, padded against bank conflicts
+  __shared__ float s_row[K][RB + 1];  // one table row per beam, padded against bank conflicts
   __shared__ unsigned long long s_keys[W][32];  // each warp's keys, sorted
 
   const int g = blockIdx.x;
@@ -257,9 +283,9 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
 
     // ---- every lane reads its beam's state; children apply the gates and
     // build their pool entry
-    float cfg[L];
+    float cfg[LB];
 #pragma unroll
-    for (int q = 0; q < L; ++q) cfg[q] = s_feats[q][kb];
+    for (int q = 0; q < LB; ++q) cfg[q] = q < L ? s_feats[q][kb] : -1.0f;
     const float lengths = s_feats[LEN][kb];
     const bool done = s_feats[DONE][kb] > 0.5f;
     const float angle_sum = s_feats[ANGLE][kb], n_under = s_feats[UNDER][kb];
@@ -272,19 +298,22 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
     const float p = lengths - 1.0f;
     const bool expandable = (s_alive[kb] > 0.5f) && !done && (lengths < target_len);
 
-    float entry[F];  // this thread's pool entry
+    // this thread's pool entry: its configs are cfg, with the candidate at
+    // position `lengths` for a child; `tail` holds the rows after them
+    float tail[16];
+    float cand_idx = -1.0f;
     float score = kBig;
     bool can = false;
     if (is_child) {
       const float* row = s_row[kb];
-      const float cand_idx = row[j];
+      cand_idx = row[j];
       const bool can0 = row[C + j] > 0.5f;
       const float cand_x = row[2 * C + j], cand_y = row[3 * C + j];
 
       // gate 1: not already in config
       bool in_cfg = false;
 #pragma unroll
-      for (int q = 0; q < L; ++q) in_cfg = in_cfg || (cand_idx == cfg[q]);
+      for (int q = 0; q < LB; ++q) in_cfg = in_cfg || (q < L && cand_idx == cfg[q]);
       can = can0 && !in_cfg;
 
       // gate 2: ellipse (p >= 1)
@@ -309,7 +338,8 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
       // C neighbours of the same tail
       bool blocked = false;
 #pragma unroll
-      for (int m = 0; m < C; ++m) {
+      for (int m = 0; m < CB; ++m) {
+        if (m >= C) break;
         const float mx = row[2 * C + m], my = row[3 * C + m];
         const float v_ml_x = last_x - mx, v_ml_y = last_y - my;
         const float d_ml = sqrtf(v_ml_x * v_ml_x + v_ml_y * v_ml_y);
@@ -362,24 +392,22 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
       const float c_score = partial_score(cs, c_len, c_angle, c_under, c_resid, c_init, c_wrong);
       score = can ? c_score : kBig;
 
-#pragma unroll
-      for (int q = 0; q < L; ++q) entry[q] = (lengths == static_cast<float>(q)) ? cand_idx : cfg[q];
-      entry[LEN] = c_len;
-      entry[DONE] = 0.0f;
-      entry[ANGLE] = c_angle;
-      entry[UNDER] = c_under;
-      entry[RESID] = c_resid;
-      entry[INIT] = c_init;
-      entry[WRONG] = c_wrong;
-      entry[LAST_IDX] = cand_idx;
-      entry[LAST_X] = cand_x;
-      entry[LAST_Y] = cand_y;
-      entry[PREV_X] = last_x;
-      entry[PREV_Y] = last_y;
-      entry[PREV2_X] = prev_x;
-      entry[PREV2_Y] = prev_y;
-      entry[FIRST_X] = first_x;
-      entry[FIRST_Y] = first_y;
+      tail[T_LEN] = c_len;
+      tail[T_DONE] = 0.0f;
+      tail[T_ANGLE] = c_angle;
+      tail[T_UNDER] = c_under;
+      tail[T_RESID] = c_resid;
+      tail[T_INIT] = c_init;
+      tail[T_WRONG] = c_wrong;
+      tail[T_LAST_IDX] = cand_idx;
+      tail[T_LAST_X] = cand_x;
+      tail[T_LAST_Y] = cand_y;
+      tail[T_PREV_X] = last_x;
+      tail[T_PREV_Y] = last_y;
+      tail[T_PREV2_X] = prev_x;
+      tail[T_PREV2_Y] = prev_y;
+      tail[T_FIRST_X] = first_x;
+      tail[T_FIRST_Y] = first_y;
     }
 
     // ---- the parent freezes a beam that found no extension: the any-over-C
@@ -393,24 +421,22 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
           partial_score(cs, lengths, angle_sum, n_under, residual, init_cost, wrong_sum);
       score = frozen ? p_score : kBig;
 
-#pragma unroll
-      for (int q = 0; q < L; ++q) entry[q] = cfg[q];
-      entry[LEN] = lengths;
-      entry[DONE] = done2 ? 1.0f : 0.0f;
-      entry[ANGLE] = angle_sum;
-      entry[UNDER] = n_under;
-      entry[RESID] = residual;
-      entry[INIT] = init_cost;
-      entry[WRONG] = wrong_sum;
-      entry[LAST_IDX] = last_idx;
-      entry[LAST_X] = last_x;
-      entry[LAST_Y] = last_y;
-      entry[PREV_X] = prev_x;
-      entry[PREV_Y] = prev_y;
-      entry[PREV2_X] = prev2_x;
-      entry[PREV2_Y] = prev2_y;
-      entry[FIRST_X] = first_x;
-      entry[FIRST_Y] = first_y;
+      tail[T_LEN] = lengths;
+      tail[T_DONE] = done2 ? 1.0f : 0.0f;
+      tail[T_ANGLE] = angle_sum;
+      tail[T_UNDER] = n_under;
+      tail[T_RESID] = residual;
+      tail[T_INIT] = init_cost;
+      tail[T_WRONG] = wrong_sum;
+      tail[T_LAST_IDX] = last_idx;
+      tail[T_LAST_X] = last_x;
+      tail[T_LAST_Y] = last_y;
+      tail[T_PREV_X] = prev_x;
+      tail[T_PREV_Y] = prev_y;
+      tail[T_PREV2_X] = prev2_x;
+      tail[T_PREV2_Y] = prev2_y;
+      tail[T_FIRST_X] = first_x;
+      tail[T_FIRST_Y] = first_y;
     }
 
     // ---- exact top-K in O(P log P). Each warp sorts its keys; an entry's
@@ -424,17 +450,22 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
     if (has_entry) {
       int rank = 0;
 #pragma unroll
-      for (int w = 0; w < W; ++w) rank += count_below(s_keys[w], key);
+      for (int w = 0; w < W; ++w) rank += count_below<CB + 1 == kGroup>(s_keys[w], key);
       // the entry of rank r < K becomes column r of the new state
       if (rank < K) {
         const bool valid = score < (float)0.5e30;
         // invalid slots: configs -1, length 0, done 0, last_idx -1
 #pragma unroll
-        for (int q = 0; q < L; ++q) s_feats[q][rank] = valid ? entry[q] : -1.0f;
-        s_feats[LEN][rank] = valid ? entry[LEN] : 0.0f;
-        s_feats[DONE][rank] = valid ? entry[DONE] : 0.0f;
+        for (int q = 0; q < LB; ++q) {
+          if (q < L) {
+            const float v = (is_child && lengths == static_cast<float>(q)) ? cand_idx : cfg[q];
+            s_feats[q][rank] = valid ? v : -1.0f;
+          }
+        }
+        s_feats[LEN][rank] = valid ? tail[T_LEN] : 0.0f;
+        s_feats[DONE][rank] = valid ? tail[T_DONE] : 0.0f;
 #pragma unroll
-        for (int q = ANGLE; q < F; ++q) s_feats[q][rank] = entry[q];
+        for (int q = T_ANGLE; q < 16; ++q) s_feats[L + q][rank] = tail[q];
         if (!valid) s_feats[LAST_IDX][rank] = -1.0f;
         s_alive[rank] = valid ? 1.0f : 0.0f;
       }
@@ -447,11 +478,12 @@ beam_search_kernel(const float* __restrict__ table, const float* __restrict__ fe
   if (tid < K) out_alive[static_cast<size_t>(g) * K + tid] = s_alive[tid];
 }
 
-template <int K, int L, int C>
+template <int K, int LB, int CB, bool kExact>
 int launch(const float* table, const float* feats0, const float* alive0, const float* params,
-           float* out_feats, float* out_alive, int g, int n, const Consts& cs, cudaStream_t stream) {
-  beam_search_kernel<K, L, C><<<g, K * kGroup, 0, stream>>>(table, feats0, alive0, params, out_feats,
-                                                            out_alive, n, cs);
+           float* out_feats, float* out_alive, int g, int n, int l, int c, const Consts& cs,
+           cudaStream_t stream) {
+  beam_search_kernel<K, LB, CB, kExact><<<g, K * kGroup, 0, stream>>>(
+      table, feats0, alive0, params, out_feats, out_alive, n, l, c, cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,13 +493,23 @@ extern "C" int fused_beam_search_f32(const float* table, const float* feats0, co
                                      const float* params, float* out_feats, float* out_alive,
                                      int g, int n, int k, int l, int c, const Consts* consts,
                                      void* stream) {
+  if (l < 1 || l > MAX_L || c < 1 || c > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
   if (g <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 32 && l == 12 && c == 5) {
-    return launch<32, 12, 5>(table, feats0, alive0, params, out_feats, out_alive, g, n, *consts, s);
+  const Consts& cs = *consts;
+  if (k == 32 && l == 12 && c == 5) {  // the sorter's default, exact
+    return launch<32, 12, 5, true>(table, feats0, alive0, params, out_feats, out_alive, g, n, l, c, cs, s);
   }
-  if (k == 16 && l == 12 && c == 5) {  // the plan server's beam-width knob
-    return launch<16, 12, 5>(table, feats0, alive0, params, out_feats, out_alive, g, n, *consts, s);
+  switch (k) {
+    case 8:
+      return launch<8, MAX_L, MAX_C, false>(table, feats0, alive0, params, out_feats, out_alive, g, n, l, c, cs, s);
+    case 16:
+      return launch<16, MAX_L, MAX_C, false>(table, feats0, alive0, params, out_feats, out_alive, g, n, l, c, cs, s);
+    case 32:
+      return launch<32, MAX_L, MAX_C, false>(table, feats0, alive0, params, out_feats, out_alive, g, n, l, c, cs, s);
+    case 64:
+      return launch<64, MAX_L, MAX_C, false>(table, feats0, alive0, params, out_feats, out_alive, g, n, l, c, cs, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

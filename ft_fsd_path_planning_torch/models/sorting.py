@@ -36,18 +36,23 @@ Tensor = torch.Tensor
 _INF = math.inf
 
 
-def _use_fused_beam(device: torch.device) -> bool:
+def _use_fused_beam(device: torch.device, cfg: SortingConfig) -> bool:
     """Whether the search runs as the fused kernel B2 (`ops/beam_search.py`)
-    or as the scan, read from ``FT_FSD_FUSED_BEAM`` as in the JAX package.
+    or as the scan, read from ``FT_FSD_FUSED_BEAM`` as in the JAX package and
+    from the search's shape.
 
     On a CUDA device the kernel is the sorter's path unless the variable is
-    ``0``: the scan is thousands of small launches per call, the kernel one. On
-    the CPU the scan runs unless the variable is ``1``, which selects the
-    kernel's plain PyTorch version (the tests use it). A kernel that fails to
-    build or launch raises; it never selects the scan."""
+    ``0`` or the kernel does not take the shape (beam_width, max_length,
+    max_n_neighbors) (`bs.kernel_supports`: beam width 8, 16, 32 or 64, max
+    length up to 32, up to 7 neighbours): the scan is thousands of small
+    launches per call, the kernel one. On the CPU the scan runs unless the
+    variable is ``1``, which selects the kernel's plain PyTorch version (the
+    tests use it). The choice is made from the shape alone, before anything is
+    launched; a kernel that fails to build or launch raises, it never selects
+    the scan."""
     flag = os.environ.get("FT_FSD_FUSED_BEAM", "")
     if device.type == "cuda":
-        return flag != "0"
+        return flag != "0" and bs.kernel_supports(cfg.beam_width, cfg.max_length, cfg.max_n_neighbors)
     return flag == "1"
 
 
@@ -279,7 +284,6 @@ def _initial_beam_state(
 
 def _beam_search_side(
     cfg: SortingConfig,
-    beam_width: int,
     points: Tensor,
     mask: Tensor,
     cone_type: Tensor,
@@ -292,8 +296,8 @@ def _beam_search_side(
 ) -> tuple[Tensor, Tensor]:
     """Run the beam searches; returns (configs (G, K, L), pool_valid (G, K))."""
     l = cfg.max_length
-    feats, alive = _initial_beam_state(cfg, beam_width, points, prefix, n_first, car_direction)
-    if _use_fused_beam(points.device):
+    feats, alive = _initial_beam_state(cfg, cfg.beam_width, points, prefix, n_first, car_direction)
+    if _use_fused_beam(points.device, cfg):
         # the whole search loop as one call of kernel B2
         params = torch.stack(
             [
@@ -305,7 +309,7 @@ def _beam_search_side(
         )
         feats, alive_f = bs.fused_beam_search(
             node_table.contiguous(), feats, alive.to(torch.float32), params,
-            k=beam_width, l=l, c=cfg.max_n_neighbors,
+            k=cfg.beam_width, l=l, c=cfg.max_n_neighbors,
             weights=tuple(float(sorting_cost.WEIGHTS[i]) for i in (0, 1, 2, 3, 6)),
             gates=dict(_gate_items(cfg)),
         )
@@ -595,7 +599,7 @@ def sort_one_side(
 
     _, node_table, target_length = build_adjacency(s, points, mask, cone_type, prefix[:, 0])
     configs, valid = _beam_search_side(
-        s, s.beam_width, points, mask, cone_type, prefix, n_first,
+        s, points, mask, cone_type, prefix, n_first,
         car_position, car_direction, node_table, target_length,
     )
     configs, valid = _postfilter_pool(points, configs, valid, cone_type)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import torch
 
@@ -42,10 +43,30 @@ BIG = 1e30  # finite stand-in for +inf scores (inf would give NaN in arithmetic)
 P_CARX, P_CARY, P_DIRX, P_DIRY, P_SIGN, P_TLEN = range(6)
 N_PARAMS = 6
 
-#: (K, L, C) triples the kernel is instantiated for: the `SortingConfig`
-#: defaults (beam_width, max_length, max_n_neighbors), and beam width 16,
-#: which the plan server's explorer offers; another triple raises on the card
-KERNEL_SHAPES = ((32, 12, 5), (16, 12, 5))
+#: beam widths K the kernel is instantiated for (a template parameter:
+#: 8 K threads a search)
+KERNEL_BEAM_WIDTHS = (8, 16, 32, 64)
+#: bounds of the run-time max length L and neighbour count C (C children and
+#: the parent of a beam share one group of eight lanes)
+KERNEL_MAX_LENGTH = 32
+KERNEL_MAX_NEIGHBORS = 7
+
+
+def kernel_supports(k: int, l: int, c: int) -> bool:
+    """Whether the CUDA kernel takes the search shape (K, L, C) = (beam
+    width, max length, max neighbours): K in {8, 16, 32, 64}, 1 <= L <= 32,
+    1 <= C <= 7. The sorter decides by this, before any launch, whether a
+    search on a CUDA device runs as the kernel or as its scan."""
+    return k in KERNEL_BEAM_WIDTHS and 1 <= l <= KERNEL_MAX_LENGTH and 1 <= c <= KERNEL_MAX_NEIGHBORS
+
+
+def instantiation(k: int, l: int, c: int) -> str:
+    """Name of the kernel instantiation a supported shape launches, as
+    ``fused_beam_search_f32`` dispatches: the sorter's default (32, 12, 5)
+    has its own exact one, every other shape the general one of its beam
+    width."""
+    return "K=32 L=12 C=5" if (k, l, c) == (32, 12, 5) else f"K={k} L<={KERNEL_MAX_LENGTH} C<={KERNEL_MAX_NEIGHBORS}"
+
 
 #: gate constants the search reads, by the names of `models/sorting.py::_gate_items`
 GATE_NAMES = (
@@ -57,13 +78,16 @@ GATE_NAMES = (
 _TAN_PI_8 = 0.4142135623730950
 _ATAN_COEF = (8.05374449538e-2, 1.38776856032e-1, 1.99777106478e-1, 3.33329491539e-1)
 
-#: launches of the CUDA kernel since the last reset (plain calls do not count)
+#: launches of the CUDA kernel since the last reset (plain calls do not
+#: count), in all and by instantiation (:func:`instantiation`)
 launch_count = 0
+launch_count_by_instantiation: Counter = Counter()
 
 
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+    launch_count_by_instantiation.clear()
 
 
 def feature_rows(l: int) -> int:
@@ -417,14 +441,17 @@ def fused_beam_search_cuda(
     """Launch the CUDA kernel on the current stream (no synchronisation):
     one block per search, eight lanes per beam."""
     global launch_count
+    if not kernel_supports(k, l, c):
+        raise ValueError(
+            f"the kernel does not take (K, L, C) = {(k, l, c)}: K in {KERNEL_BEAM_WIDTHS}, "
+            f"L <= {KERNEL_MAX_LENGTH}, C <= {KERNEL_MAX_NEIGHBORS}"
+        )
     tensors = (node_table, feats0, alive0, params)
     if any(t.device.type != "cuda" or t.device != node_table.device for t in tensors):
         raise ValueError("fused_beam_search_cuda takes CUDA tensors on one device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("fused_beam_search_cuda takes float32 tensors")
     g = _check_shapes(node_table, feats0, alive0, params, k, l, c)
-    if (k, l, c) not in KERNEL_SHAPES:
-        raise ValueError(f"no kernel instantiation for (K, L, C) = {(k, l, c)}; have {KERNEL_SHAPES}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("node_table, feats0, alive0 and params must be contiguous")
     missing = set(GATE_NAMES) - set(gates)
@@ -446,6 +473,7 @@ def fused_beam_search_cuda(
     if err != 0:
         raise RuntimeError(f"beam_search kernel launch failed: CUDA error {err}")
     launch_count += 1
+    launch_count_by_instantiation[instantiation(k, l, c)] += 1
     return out_feats, out_alive
 
 

@@ -1,18 +1,23 @@
-"""Batched and replayed execution on one device.
+"""Batched, replayed and sharded execution.
 
 Counterpart of `ft_fsd_path_planning_tpu/parallel/batch.py`. The planner
 step is already batched over a leading frame axis, so `batched_step` is one
 call of it; `replay_scan` carries the state through time in a Python loop.
-Multi-device sharding is not ported yet (ROADMAP.md, Queue A11).
+`sharded_batched_step` runs it on this process's rows of a batch split over
+the processes of a ``torch.distributed`` group (`parallel/distributed.py`),
+one device a process, and reduces the batch metrics across them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ft_fsd_path_planning_torch.config import PlannerConfig
+from ft_fsd_path_planning_torch.device import resolve_device
 from ft_fsd_path_planning_torch.models.planner import (
     FrameInput,
     PlannerState,
@@ -123,3 +128,116 @@ def path_parity_deviation_paths(a_paths: Tensor, b_paths: Tensor) -> Tensor:
     d_ab = torch.where(a_paths[:, :, 0] <= span[:, None], d_ab, torch.zeros_like(d_ab))
     d_ba = torch.where(b_paths[:, :, 0] <= span[:, None], d_ba, torch.zeros_like(d_ba))
     return torch.maximum(d_ab.amax(dim=-1), d_ba.amax(dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# sharding over processes
+# ---------------------------------------------------------------------------
+
+
+class Mesh(NamedTuple):
+    """Where this process's rows live: the process group (``None`` on one
+    process without a group), this process's device and the batch axis's
+    name. One process drives one device, so the mesh's size is the group's."""
+
+    group: Any
+    device: torch.device
+    axis: str = "data"
+
+    @property
+    def size(self) -> int:
+        return 1 if self.group is None else dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+
+def rank_device(device: str | torch.device | None = None) -> torch.device:
+    """This process's device: ``device`` as given, or by default the CUDA
+    card of its local rank (``LOCAL_RANK`` modulo the cards); raises
+    without a GPU unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+    return dev
+
+
+def make_mesh(
+    n_devices: int | None = None, axis: str = "data", device: str | torch.device | None = None
+) -> Mesh:
+    """The mesh over the processes of the default group (one device each),
+    or over this process alone when no group was formed. ``n_devices``, if
+    given, must be the number of processes."""
+    group = dist.group.WORLD if dist.is_initialized() else None
+    mesh = Mesh(group, rank_device(device), axis)
+    if n_devices is not None and n_devices != mesh.size:
+        raise ValueError(f"a mesh of {n_devices} devices needs {n_devices} processes; the group has {mesh.size}")
+    return mesh
+
+
+def all_reduce_sum(mesh: Mesh, values: Tensor) -> Tensor:
+    """Sum of a small float32 vector over the processes of the mesh, returned
+    on the host. NCCL reduces on this process's card, gloo on the host; with
+    no group it is the vector itself."""
+    if mesh.group is None:
+        return values.cpu()
+    on_card = dist.get_backend(mesh.group) == "nccl"
+    buf = values.to(mesh.device if on_card else "cpu")
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    return buf.cpu()
+
+
+def sharded_batched_step(cfg: PlannerConfig, mesh: Mesh):
+    """The batched step on this process's rows: ``fn(states, frames) ->
+    (outs, new_states, BatchMetrics)``. Each process solves its rows on its
+    own device (planning is data-parallel over frames); one ``all_reduce``
+    of the local count and the six local sums gives every process the same
+    metrics of the whole batch (on the host), sum / count."""
+
+    def step(states: PlannerState, frames: FrameInput):
+        outs, new_states = batched_step(cfg, states, frames)
+        paths = outs.path
+        local = torch.stack([
+            torch.full((), float(paths.shape[0]), device=paths.device),
+            torch.sum(paths[:, -1, 0].to(torch.float32)),
+            torch.sum(torch.mean(torch.abs(paths[:, :, 3]), dim=1).to(torch.float32)),
+            torch.sum(outs.path_ok.to(torch.float32)),
+            torch.sum(outs.path_too_far.to(torch.float32)),
+            torch.sum(outs.relocalized.to(torch.float32)),
+            torch.sum(outs.spline_budget_hit.to(torch.float32)),
+        ])
+        sums = all_reduce_sum(mesh, local)
+        n = sums[0]
+        metrics = BatchMetrics(n, *(sums[i] / n for i in range(1, 7)))
+        return outs, new_states, metrics
+
+    return step
+
+
+def shard_batch(mesh: Mesh, tree):
+    """This process's rows of a full batched tree (nested NamedTuples of
+    tensors), on its device: an equal split of the leading axis by rank."""
+    batch = leading_rows(tree)
+    if batch % mesh.size != 0:
+        raise ValueError(
+            f"global_batch={batch} must divide evenly over {mesh.size} processes (pad the batch to a multiple)"
+        )
+    per = batch // mesh.size
+    lo = mesh.rank * per
+    return tree_map(lambda x: torch.as_tensor(x)[lo : lo + per].to(mesh.device), tree)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of nested NamedTuples (a `FrameInput`, a
+    `PlannerState`)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    return fn(tree)
+
+
+def leading_rows(tree) -> int:
+    """The batch rows of a batched tree: its first leaf's leading dim."""
+    while isinstance(tree, tuple):
+        tree = tree[0]
+    return int(tree.shape[0])

@@ -154,7 +154,7 @@ def main() -> None:
             "n_cones": args.n_cones,
             "step_ms": step_ms,
             "stage_ms": stages,
-            "sorter_search": "none" if cfg.has_relocalizer else "B2" if planner.sorting._use_fused_beam(frames.cones.device) else "scan",
+            "sorter_search": "none" if cfg.has_relocalizer else "B2" if planner.sorting._use_fused_beam(frames.cones.device, cfg.sorting) else "scan",
             "refined_solve": "composition of bare solves" if args.composition else "fused entry",
             "b1_launches": banded_cholesky.launch_count,
             "b2_launches": beam_search.launch_count,

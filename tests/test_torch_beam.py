@@ -19,8 +19,18 @@ frames for the sorter. Tolerances:
   64-bit key, the per-warp bitonic sort and the binary search in every
   warp's sorted list, as csrc/beam_search.cu writes them) gives exactly the
   pairwise rank of the plain version, ties, signed zeros and negative scores
-  included.
+  included, at every beam width the kernel is built for and at C = 7, where
+  every lane of a group holds an entry;
+* at the other search shapes the kernel takes, for 4 frames (G = 8): the
+  plain version against the Pallas kernel at (64, 16, 5) and (16, 12, 5), and
+  against the port's scan from the same packed state and, through the
+  sorter, the JAX scan at (8, 8, 5) (the tiny configuration of the
+  distributed tests, whose pool of 48 the Pallas kernel refuses) and
+  (64, 16, 5), with the bars above; the sorter picks kernel or scan by shape
+  alone.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -33,7 +43,8 @@ from ft_fsd_path_planning_tpu.config import default_config as jax_config
 from ft_fsd_path_planning_tpu.models import sorting as js
 from ft_fsd_path_planning_tpu.ops.pallas import beam_search as jbs
 from ft_fsd_path_planning_tpu.parallel import scenarios as jscen
-from ft_fsd_path_planning_torch.config import default_config as torch_config
+from ft_fsd_path_planning_tpu.config import SortingConfig as JaxSortingConfig
+from ft_fsd_path_planning_torch.config import SortingConfig, default_config as torch_config
 from ft_fsd_path_planning_torch.models import sorting as ts
 from ft_fsd_path_planning_torch.ops import beam_search as tbs
 from ft_fsd_path_planning_torch.parallel import scenarios as tscen
@@ -57,11 +68,11 @@ def _sort(frames, monkeypatch, fused: bool):
     return ts.run_cone_sorting(TCFG, frames.cones, frames.mask, frames.position, frames.direction)
 
 
-@pytest.fixture(scope="module")
-def packed():
+def _packed_searches(tcfg, n_frames: int, seeds, pallas: bool = True) -> dict:
     """Per seed: the packed (node_table, feats0, alive0, params) the port's
-    sorter hands to the fused search, with the search's keyword arguments,
-    the plain version's result and the Pallas kernel's (interpret mode)."""
+    sorter hands to the fused search at ``tcfg``, with the search's keyword
+    arguments, the plain version's result and the Pallas kernel's
+    (interpret mode)."""
     captured = {}
     original = ts.bs.fused_beam_search
 
@@ -69,21 +80,34 @@ def packed():
         captured["call"] = (args, kwargs)
         return original(*args, **kwargs)
 
-    pallas = None
+    kernel = None
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ts.bs, "fused_beam_search", recording)
-        for seed in PACKED_SEEDS:
-            _sort(tscen.make_frame_batch(TCFG, 8, seed=seed, device="cpu"), mp, fused=True)
+        for seed in seeds:
+            mp.setenv("FT_FSD_FUSED_BEAM", "1")
+            ts.run_cone_sorting(tcfg, *_frame_args(tscen.make_frame_batch(tcfg, n_frames, seed=seed, device="cpu")))
             args, kwargs = captured["call"]
-            if pallas is None:
-                pallas = jax.jit(
+            ours = tbs.fused_beam_search_plain(*args, **kwargs)
+            if not pallas:
+                out[seed] = (args, kwargs, ours, None)
+                continue
+            if kernel is None:
+                kernel = jax.jit(
                     lambda *a: jbs.fused_beam_search(*a, n=N, interpret=True, **kwargs)  # noqa: B023
                 )
-            theirs = pallas(*(jnp.asarray(a.numpy()) for a in args))
-            ours = tbs.fused_beam_search_plain(*args, **kwargs)
+            theirs = kernel(*(jnp.asarray(a.numpy()) for a in args))
             out[seed] = (args, kwargs, ours, jax.tree.map(np.asarray, theirs))
     return out
+
+
+def _frame_args(frames):
+    return frames.cones, frames.mask, frames.position, frames.direction
+
+
+@pytest.fixture(scope="module")
+def packed():
+    return _packed_searches(TCFG, 8, PACKED_SEEDS)
 
 
 @pytest.mark.parametrize("seed", PACKED_SEEDS)
@@ -167,7 +191,132 @@ def test_switch(monkeypatch, device, flag, want):
         monkeypatch.delenv("FT_FSD_FUSED_BEAM", raising=False)
     else:
         monkeypatch.setenv("FT_FSD_FUSED_BEAM", flag)
-    assert ts._use_fused_beam(torch.device(device)) is want
+    assert ts._use_fused_beam(torch.device(device), TCFG.sorting) is want
+
+
+# (K, L, C) = (beam_width, max_length, max_n_neighbors): the kernel's shapes,
+# then two it does not take (a beam width between its instantiations, a max
+# length above its bound), which run as the scan on the card
+SHAPES = {
+    (8, 8, 5): True, (16, 12, 5): True, (32, 12, 5): True, (64, 16, 5): True, (32, 32, 7): True,
+    (10, 12, 5): False, (32, 40, 5): False,
+}
+
+
+def _sorting_cfg(k: int, l: int, c: int) -> SortingConfig:
+    return SortingConfig(beam_width=k, max_length=l, max_n_neighbors=c)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES), ids=str)
+def test_kernel_supports_and_dispatch_by_shape(monkeypatch, shape):
+    """The sorter picks kernel or scan from the shape alone: on a CUDA
+    device the kernel where it takes the shape, else the scan, whatever the
+    flag asks; on the CPU the flag alone decides."""
+    assert tbs.kernel_supports(*shape) is SHAPES[shape]
+    cfg = _sorting_cfg(*shape)
+    monkeypatch.delenv("FT_FSD_FUSED_BEAM", raising=False)
+    assert ts._use_fused_beam(torch.device("cuda"), cfg) is SHAPES[shape]
+    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "1")
+    assert ts._use_fused_beam(torch.device("cuda"), cfg) is SHAPES[shape]
+    assert ts._use_fused_beam(torch.device("cpu"), cfg) is True
+    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "0")
+    assert ts._use_fused_beam(torch.device("cuda"), cfg) is False
+
+
+def test_cuda_wrapper_refuses_shapes_the_kernel_does_not_take(packed):
+    """Called directly, the CUDA wrapper raises on a shape outside the
+    kernel's range before it looks at the tensors' device."""
+    args, kwargs, _, _ = packed[PACKED_SEEDS[0]]
+    tbs.reset_launch_count()
+    for k, l, c in [s for s, ok in SHAPES.items() if not ok] + [(32, 12, 8), (32, 12, 0), (128, 12, 5)]:
+        with pytest.raises(ValueError, match="does not take"):
+            tbs.fused_beam_search_cuda(*args, **{**kwargs, "k": k, "l": l, "c": c})
+    assert tbs.launch_count == 0
+
+
+OTHER_SHAPES = ((8, 8, 5), (64, 16, 5))  # kernel shapes beside the default, held on the CPU
+# the Pallas kernel ranks its pool in chunks of 32 entries
+# (ops/pallas/beam_search.py:372-389) and refuses a pool K + K C that is no
+# multiple of 32, such as (8, 8, 5)'s 48; there the plain version is held
+# against the port's scan on the same packed state and, through the sorter,
+# against the JAX package's scan
+PALLAS_SHAPES = ((64, 16, 5), (16, 12, 5))
+OTHER_SEED = 11
+
+
+@pytest.fixture(scope="module")
+def packed_other():
+    """The packed searches, the plain version's and the Pallas kernel's
+    results (where it takes the shape) at the other kernel shapes."""
+    out = {}
+    for k, l, c in sorted(set(OTHER_SHAPES) | set(PALLAS_SHAPES)):
+        tcfg = torch_config(n_cones=N, sorting=_sorting_cfg(k, l, c))
+        pallas = (k, l, c) in PALLAS_SHAPES
+        out[(k, l, c)] = _packed_searches(tcfg, 4, (OTHER_SEED,), pallas=pallas)[OTHER_SEED]
+    return out
+
+
+@pytest.mark.parametrize("shape", PALLAS_SHAPES, ids=str)
+def test_plain_search_matches_pallas_interpret_at_other_shapes(packed_other, shape):
+    k, l, c = shape
+    args, kwargs, (feats, alive), (jfeats, jalive) = packed_other[shape]
+    assert args[0].shape == (8, N, 4 * c) and args[1].shape == (8, l + 16, k)
+    assert (kwargs["k"], kwargs["l"], kwargs["c"]) == shape
+    int_rows = list(range(l)) + [l, l + 1, l + 7]
+    float_rows = [r for r in range(l + 16) if r not in int_rows]
+    np.testing.assert_array_equal(alive.numpy(), jalive)
+    np.testing.assert_array_equal(feats[:, int_rows].numpy(), jfeats[:, int_rows])
+    np.testing.assert_allclose(feats[:, float_rows].numpy(), jfeats[:, float_rows], atol=1e-5)
+    assert alive[:, 0].sum() >= 4 and feats[:, l].max() >= 5
+
+
+@pytest.mark.parametrize("shape", OTHER_SHAPES, ids=str)
+def test_plain_search_matches_scan_at_other_shapes(packed_other, shape):
+    """The plain version and the port's scan from the same packed state:
+    integer rows and alive equal, float rows to 1e-5."""
+    k, l, c = shape
+    args, kwargs, (feats, alive), _ = packed_other[shape]
+    table, feats0, alive0, params = args
+    cfg = _sorting_cfg(k, l, c)
+    cone_type = torch.where(params[:, tbs.P_SIGN] > 0, 2, 1)
+    scan_feats, scan_alive = ts._beam_scan(
+        cfg, feats0, alive0 > 0.5, cone_type, params[:, :2].contiguous(),
+        params[:, 2:4].contiguous(), table, params[:, tbs.P_TLEN],
+    )
+    valid = alive > 0.5
+    assert torch.equal(valid, scan_alive)
+    int_rows = list(range(l)) + [l, l + 1, l + 7]
+    np.testing.assert_array_equal(feats[:, int_rows].numpy(), scan_feats[:, int_rows].numpy())
+    v = valid.numpy()  # the float rows of the survivors, (n, F)
+    got, want = np.moveaxis(feats.numpy(), 1, 2)[v], np.moveaxis(scan_feats.numpy(), 1, 2)[v]
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert int(valid[:, 0].sum()) >= 4 and feats[:, l].max() >= 5
+
+
+@pytest.mark.parametrize("shape", OTHER_SHAPES, ids=str)
+def test_sorter_fused_matches_scan_and_jax_at_other_shapes(monkeypatch, shape):
+    k, l, c = shape
+    tcfg = torch_config(n_cones=N, sorting=_sorting_cfg(k, l, c))
+    jcfg = jax_config(n_cones=N, sorting=JaxSortingConfig(beam_width=k, max_length=l, max_n_neighbors=c))
+    assert dataclasses.asdict(tcfg.sorting) == dataclasses.asdict(jcfg.sorting)
+    frames = tscen.make_frame_batch(tcfg, 4, seed=OTHER_SEED, device="cpu")
+    outs = {}
+    for flag in ("1", "0"):
+        monkeypatch.setenv("FT_FSD_FUSED_BEAM", flag)
+        outs[flag] = ts.run_cone_sorting(tcfg, *_frame_args(frames))
+    jframes = jscen.make_frame_batch(jcfg, 4, seed=OTHER_SEED)
+    theirs = jax.tree.map(np.asarray, jax.jit(jax.vmap(
+        lambda f: js.run_cone_sorting(jcfg, f.cones, f.mask, f.position, f.direction)
+    ))(jframes))
+    for name in theirs._fields:
+        f, s, j = getattr(outs["1"], name).numpy(), getattr(outs["0"], name).numpy(), getattr(theirs, name)
+        if f.dtype == bool:
+            np.testing.assert_array_equal(f, s, err_msg=name)
+            np.testing.assert_array_equal(f, j, err_msg=name)
+        else:
+            np.testing.assert_allclose(f, s, atol=1e-5, err_msg=name)
+            np.testing.assert_allclose(f, j, atol=1e-5, err_msg=name)
+    assert theirs.left_mask.sum() > 2 * 4 and theirs.right_mask.sum() > 2 * 4
 
 
 def test_gate_items_match_jax():
@@ -187,7 +336,7 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(packed):
 
 
 def test_cost_counters():
-    assert (K, L, C) in tbs.KERNEL_SHAPES
+    assert tbs.kernel_supports(K, L, C)
     one = tbs.search_bytes(1, 128, K, L, C)
     assert one == 4 * (128 * 20 + 2 * (28 * 32 + 32) + 6)
     assert tbs.search_bytes(512, 128, K, L, C) == 512 * one
@@ -208,14 +357,14 @@ GROUP = 8  # lanes per beam: C children, the parent, the rest hold nothing
 NO_ENTRY = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
-def _thread_pool_index(tid: int) -> int | None:
+def _thread_pool_index(tid: int, k: int = K, c: int = C) -> int | None:
     """Pool index of the entry thread ``tid`` holds, as the kernel maps it."""
     warp, lane = divmod(tid, 32)
     slot = lane % GROUP
     beam = warp * (32 // GROUP) + lane // GROUP
-    if slot < C:
-        return K + slot * K + beam
-    return beam if slot == C else None
+    if slot < c:
+        return k + slot * k + beam
+    return beam if slot == c else None
 
 
 def _rank_key(score: np.float32, pool_index: int) -> np.uint64:
@@ -241,31 +390,34 @@ def _warp_sort(keys: np.ndarray) -> np.ndarray:
     return keys
 
 
-def _count_below(sorted_keys: np.ndarray, key: np.uint64) -> int:
+def _count_below(sorted_keys: np.ndarray, key: np.uint64, full_groups: bool = False) -> int:
     n, step = 0, 16
     while step > 0:
         if sorted_keys[n + step - 1] < key:
             n += step
         step >>= 1
+    if full_groups:  # the sixth probe of an instantiation whose C bound is 7
+        n += int(sorted_keys[n] < key)
     return n
 
 
-def _kernel_rank(scores: np.ndarray) -> np.ndarray:
+def _kernel_rank(scores: np.ndarray, k: int = K, c: int = C, full_groups: bool = False) -> np.ndarray:
     """rank[p] of every pool entry p as the kernel finds it."""
-    threads = K * GROUP
+    threads = k * GROUP
     keys = np.full(threads, NO_ENTRY, np.uint64)
     for tid in range(threads):
-        p = _thread_pool_index(tid)
+        p = _thread_pool_index(tid, k, c)
         if p is not None:
             keys[tid] = _rank_key(scores[p], p)
     lists = [_warp_sort(keys[w * 32 : (w + 1) * 32]) for w in range(threads // 32)]
     for srt in lists:
-        assert (np.diff(srt.astype(object)) >= 0).all() and srt[-1] == NO_ENTRY
-    rank = np.empty(K + K * C, np.int64)
+        assert (np.diff(srt.astype(object)) >= 0).all()
+        assert srt[-1] == NO_ENTRY or c == GROUP - 1
+    rank = np.empty(k + k * c, np.int64)
     for tid in range(threads):
-        p = _thread_pool_index(tid)
+        p = _thread_pool_index(tid, k, c)
         if p is not None:
-            rank[p] = sum(_count_below(srt, keys[tid]) for srt in lists)
+            rank[p] = sum(_count_below(srt, keys[tid], full_groups) for srt in lists)
     return rank
 
 
@@ -292,23 +444,23 @@ def test_thread_map_is_a_bijection_onto_the_pool_order():
         assert lane // GROUP == (lane - slot) // GROUP and slot <= C
 
 
-def _rank_cases():
+def _rank_cases(pool: int = K + K * C):
     rng = np.random.default_rng(7)
-    pool = K + K * C
     big = np.float32(tbs.BIG)
     cases = {}
     # what a step looks like: most entries tie on BIG, a few real scores
     s = np.full(pool, big, np.float32)
-    live = rng.choice(pool, 20, replace=False)
-    s[live] = rng.uniform(0.0, 5.0, 20).astype(np.float32)
+    n_live = min(20, pool // 2)
+    live = rng.choice(pool, n_live, replace=False)
+    s[live] = rng.uniform(0.0, 5.0, n_live).astype(np.float32)
     cases["mostly BIG"] = s
     cases["all BIG"] = np.full(pool, big, np.float32)
     # signed zeros tie as floats and must not be split by their bit patterns
     s = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), pool)
     cases["signed zeros"] = s
     s = rng.normal(0.0, 3.0, pool).astype(np.float32)
-    s[rng.choice(pool, 60, replace=False)] = big
-    s[rng.choice(pool, 30, replace=False)] = np.float32(-2.5)  # negative ties
+    s[rng.choice(pool, 60 * pool // 192, replace=False)] = big
+    s[rng.choice(pool, 30 * pool // 192, replace=False)] = np.float32(-2.5)  # negative ties
     cases["negatives and ties"] = s
     cases["all distinct"] = rng.permutation(pool).astype(np.float32) - 100.0
     s = np.array([1e-45, -1e-45, 0.0, -0.0, 3e38, -3e38], np.float32)  # denormals, extremes
@@ -332,3 +484,27 @@ def test_rank_key_orders_as_score_then_index():
                 want = (a < b) or (a == b and ia < ib)
                 assert (_rank_key(a, ia) < _rank_key(b, ib)) == want, (a, b, ia, ib)
     assert _rank_key(np.float32(3e38), K + K * C - 1) < NO_ENTRY
+
+
+# (K, C, sixth probe) of the kernel's other instantiations: every beam width
+# at the default C, and the general form's C bound 7 (full groups of lanes),
+# with the sixth probe its instantiations have
+RANK_SHAPES = ((8, 5, True), (16, 5, True), (64, 5, True), (32, 7, True), (64, 7, True), (8, 1, True))
+
+
+@pytest.mark.parametrize("k,c,full", RANK_SHAPES, ids=str)
+def test_kernel_rank_model_at_other_shapes(k, c, full):
+    held = [_thread_pool_index(t, k, c) for t in range(k * GROUP)]
+    assert sorted(p for p in held if p is not None) == list(range(k + k * c))
+    for name, scores in _rank_cases(k + k * c).items():
+        rank = _kernel_rank(scores, k, c, full)
+        np.testing.assert_array_equal(rank, _pairwise_rank(scores), err_msg=name)
+
+
+def test_full_groups_need_the_sixth_probe():
+    """At C = 7 the last key of a warp's list is a real entry: five probes
+    count at most 31 keys below, and the entry above them all would tie its
+    rank with another."""
+    scores = np.arange(32 + 32 * 7, dtype=np.float32)[::-1].copy()  # descending: the last pool entry is smallest
+    assert not np.array_equal(_kernel_rank(scores, 32, 7, full_groups=False), _pairwise_rank(scores))
+    np.testing.assert_array_equal(_kernel_rank(scores, 32, 7, full_groups=True), _pairwise_rank(scores))

@@ -46,6 +46,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 SESSION = REPO / "ft_fsd_path_planning_tpu/demo/closed_track_session.json"
 GOLDEN = REPO / "ft_fsd_path_planning_tpu/demo/trackdrive_golden.npz"
+SORT_CACHE_GOLDEN = REPO / "ft_fsd_path_planning_torch/assets/sort_cache_golden.npz"
 B, N = 8, 64
 N_FRAMES = 64  # past the near-threshold hit frames 18 and 58 (largest cone distance 0.09968 and 0.09952 m)
 LATERAL_TOL = 0.01
@@ -162,6 +163,19 @@ def test_sort_cache_hits_the_same_frames(cached_replay):
     # frames 18 and 58 sit within 1 mm under the 0.1 m threshold: hits here as on the card
     hit = np.diff([0] + our_hits) > 0
     assert hit[18] and hit[58], np.nonzero(hit)[0].tolist()
+
+
+def test_sort_cache_golden_asset_matches_the_first_frames(cached_replay):
+    """The committed hit sequence over the whole session
+    (`tools/make_torch_missions_golden.py`, which chip_smoke.py compares
+    with the card's replay frame by frame) agrees with both facades on the
+    frames replayed here."""
+    _, _, our_hits, their_hits = cached_replay
+    asset = np.load(SORT_CACHE_GOLDEN)
+    assert asset["hit"].shape == (300,) and asset["hit"].dtype == bool and int(asset["n_cones"]) == 256
+    np.testing.assert_array_equal(asset["hit"][:N_FRAMES], np.diff([0] + their_hits) > 0)
+    np.testing.assert_array_equal(asset["hit"][:N_FRAMES], np.diff([0] + our_hits) > 0)
+    assert 0.2 < asset["hit"].mean() < 1.0  # the cache engages over the session, and misses too
 
 
 def test_sort_cache_paths_match_jax_and_golden(cached_replay):

@@ -172,7 +172,8 @@ def test_import_loads_no_jax():
     for name in (
         "parallel.batch", "assets.known_paths", "models.relocalization", "utils.timer", "profile_step",
         "types", "native.loader", "demo.__main__", "demo.json_demo", "demo.make_session",
-        "demo.scenarios", "demo.serve", "demo.export_viz",
+        "demo.scenarios", "demo.serve", "demo.export_viz", "demo.stage_viz", "parallel.distributed",
+        "parallel.worker", "parallel.dryrun", "profile_device", "profile_pathing", "scaling_bench",
     ):
         assert f"ft_fsd_path_planning_torch.{name}" in modules
 

@@ -145,7 +145,7 @@ def test_beam_width_16_through_the_kernels_plain_version(monkeypatch):
     scan = serve._plan(payload, {}, torch.device("cpu"))
     assert fused["paths"] == scan["paths"]
     assert [i["sorted_left"] for i in fused["intermediates"]] == [i["sorted_left"] for i in scan["intermediates"]]
-    assert (16, 12, 5) in beam_search.KERNEL_SHAPES
+    assert beam_search.kernel_supports(16, 12, 5)
 
 
 def test_server_refuses_without_gpu(monkeypatch):

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Golden paths of the mission sessions, from the JAX package.
+"""Golden paths of the mission sessions and the sort cache's hit frames,
+from the JAX package.
 
     JAX_PLATFORMS=cpu python tools/make_torch_missions_golden.py [--frames N] [--out FILE]
+        [--only missions|sort_cache]
 
 Runs the seeded mission sessions of
 `ft_fsd_path_planning_torch/parallel/scenarios.py::mission_sessions` (skidpad
@@ -15,6 +17,13 @@ frame of first relocalization (-1 if never) and the ``relocalization_info``
 JAX holds the PyTorch port against this file (`chip_smoke.py`). ``--frames``
 cuts every session to its first N frames (the tests regenerate a prefix
 this way and compare it with the committed file).
+
+It also replays the committed 300-frame trackdrive session
+(`ft_fsd_path_planning_tpu/demo/closed_track_session.json`) through the JAX
+``PathPlanner`` with the sort cache on (``experimental_performance_improvements=True``,
+n_cones = 256) and writes whether each frame hit the cache (``hit``, (300,)
+bool) into `ft_fsd_path_planning_torch/assets/sort_cache_golden.npz`, which
+`chip_smoke.py` compares frame by frame with the port's replay on the card.
 
 Where the JAX package falls back on a frame (on the acceleration hairpin a
 float32 factorization of the smoothing fit's normal equations breaks down
@@ -41,7 +50,10 @@ sys.path.insert(0, str(ROOT))
 from ft_fsd_path_planning_torch.parallel import scenarios  # noqa: E402
 
 DEFAULT_OUT = ROOT / "ft_fsd_path_planning_torch/assets/missions_golden.npz"
+SORT_CACHE_OUT = ROOT / "ft_fsd_path_planning_torch/assets/sort_cache_golden.npz"
+SESSION = ROOT / "ft_fsd_path_planning_tpu/demo/closed_track_session.json"
 N_CONES = 128
+SESSION_N_CONES = 256  # the session flattens to 138 cones
 
 
 @contextlib.contextmanager
@@ -149,15 +161,44 @@ def make_golden(n_frames: int | None = None) -> dict[str, np.ndarray]:
     return out
 
 
+def sort_cache_hits(n_frames: int | None = None) -> np.ndarray:
+    """Per frame of the committed session, whether the JAX facade with the
+    sort cache on took the cached sort (both sides at once)."""
+    import json
+
+    from ft_fsd_path_planning_tpu import MissionTypes, PathPlanner
+    from ft_fsd_path_planning_tpu.config import default_config
+
+    session = json.loads(SESSION.read_bytes())[:n_frames]
+    mission = MissionTypes.trackdrive
+    planner = PathPlanner(mission, True, config=default_config(mission, True, n_cones=SESSION_N_CONES))
+    hits = []
+    for frame in session:
+        before = planner.sort_cache_hits
+        planner.calculate_path_in_global_frame(
+            [np.array(c, np.float64).reshape(-1, 2) for c in frame["slam_cones"]],
+            np.array(frame["car_position"], np.float64),
+            np.array(frame["car_direction"], np.float64),
+        )
+        hits.append(planner.sort_cache_hits > before)
+    return np.asarray(hits, bool)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=None)
     parser.add_argument("--out", type=Path, default=DEFAULT_OUT)
+    parser.add_argument("--only", choices=("missions", "sort_cache"), default=None)
     args = parser.parse_args()
-    golden = make_golden(args.frames)
-    golden = {k: v.astype(np.float32) if "/paths" in k else v for k, v in golden.items()}
-    np.savez_compressed(args.out, **golden)
-    print(f"wrote {args.out} ({args.out.stat().st_size} bytes)")
+    if args.only != "sort_cache":
+        golden = make_golden(args.frames)
+        golden = {k: v.astype(np.float32) if "/paths" in k else v for k, v in golden.items()}
+        np.savez_compressed(args.out, **golden)
+        print(f"wrote {args.out} ({args.out.stat().st_size} bytes)")
+    if args.only != "missions":
+        hit = sort_cache_hits()
+        np.savez_compressed(SORT_CACHE_OUT, hit=hit, n_cones=np.asarray(SESSION_N_CONES))
+        print(f"wrote {SORT_CACHE_OUT}: {int(hit.sum())} of {len(hit)} frames hit the sort cache {np.nonzero(hit)[0].tolist()}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,7 @@
+"""matching_ms.*: models/matching.py: wall ms a frame or step in the staged pass."""
+
+from harness.readers import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "matching")

@@ -63,15 +63,6 @@
 
 namespace {
 
-// With -DB1_PHASE_CLOCKS block 0 stamps clock64() at the end of each phase
-// (profile_b1_phases.py reads the stamps); without it PHASE is nothing.
-#ifdef B1_PHASE_CLOCKS
-__device__ long long g_phase_clocks[9];
-#define PHASE(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_clocks[k] = clock64(); } while (0)
-#else
-#define PHASE(k)
-#endif
-
 constexpr int kHalf = 4;              // half-bandwidth w
 constexpr int kBand = 2 * kHalf + 1;  // 9 stored band columns
 constexpr int kThreads = 32;          // one warp, one system, per block
@@ -281,7 +272,6 @@ __global__ void __launch_bounds__(kThreads)
 banded_cholesky_kernel(const float* __restrict__ a, long long sa0, long long sa1, long long sa2,
                        const float* __restrict__ rhs, float* __restrict__ out, int c) {
   extern __shared__ __align__(16) float smem[];
-  PHASE(0);
   const int lane = threadIdx.x;
   const int sys = blockIdx.x;
   const int r = lane < R ? lane : 0;
@@ -308,16 +298,12 @@ banded_cholesky_kernel(const float* __restrict__ a, long long sa0, long long sa1
     stage(band, a + static_cast<size_t>(sys) * kBand * c, kBand * c, lane);
   }
   stage(b, rhs + static_cast<size_t>(sys) * R * c, R * c, lane);
-  PHASE(1);  // copies issued
   copy_async_wait();
   __syncwarp();
-  PHASE(2);  // copies arrived
 
   factor_and_forward<R>(band, b, l, inv, y, c, lane, r);
   __syncwarp();
-  PHASE(3);
   if (lane < R) backward<R, false>(l, inv, y, x, c, lane);
-  PHASE(4);
 
   if (kFused) {
     __syncwarp();
@@ -332,19 +318,15 @@ banded_cholesky_kernel(const float* __restrict__ a, long long sa0, long long sa1
       res[e] = sub(b[e], ax);
     }
     __syncwarp();
-    PHASE(5);  // residual
     if (lane < R) {
       forward<R>(l, inv, res, y, c, lane);
-      PHASE(6);
       backward<R, true>(l, inv, y, x, c, lane);
-      PHASE(7);
     }
   }
   __syncwarp();
 
   float* dst = out + static_cast<size_t>(sys) * R * c;
   for (int e = lane; e < R * c; e += kThreads) dst[e] = x[e];
-  PHASE(8);
 }
 
 __global__ void empty_kernel() {}
@@ -384,9 +366,3 @@ extern "C" int banded_empty_launch(int batch, void* stream) {
   empty_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
-
-#ifdef B1_PHASE_CLOCKS
-extern "C" int banded_read_phase_clocks(long long* host) {
-  return static_cast<int>(cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(long long) * 9));
-}
-#endif

@@ -33,6 +33,7 @@ from ft_fsd_path_planning_torch.models.planner import (
 )
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
+from ft_fsd_path_planning_torch.utils.timer import span, spanned
 
 FloatArray = np.ndarray
 
@@ -206,6 +207,7 @@ class PathPlanner:
             )
         self._state = self._state._replace(global_path=buf)
 
+    @spanned("stage.facade.call")
     def calculate_path_in_global_frame(
         self,
         cones: List[FloatArray],
@@ -218,15 +220,16 @@ class PathPlanner:
         ``return_intermediate_results`` the reference's 7-tuple (path,
         sorted left, sorted right, left and right with virtual cones, and
         the two match index arrays), unpadded."""
-        vehicle_direction = self._convert_direction_to_array(vehicle_direction)
-        pts, mask = flatten_cones_by_type(cones, self.cfg.shapes.n_cones)
-        dev = self.device
-        frame = FrameInput(
-            cones=torch.as_tensor(pts, device=dev)[None],
-            mask=torch.as_tensor(mask, device=dev)[None],
-            position=torch.as_tensor(np.asarray(vehicle_position, np.float32), device=dev)[None],
-            direction=torch.as_tensor(np.asarray(vehicle_direction, np.float32), device=dev)[None],
-        )
+        with span("stage.facade.upload"):
+            vehicle_direction = self._convert_direction_to_array(vehicle_direction)
+            pts, mask = flatten_cones_by_type(cones, self.cfg.shapes.n_cones)
+            dev = self.device
+            frame = FrameInput(
+                cones=torch.as_tensor(pts, device=dev)[None],
+                mask=torch.as_tensor(mask, device=dev)[None],
+                position=torch.as_tensor(np.asarray(vehicle_position, np.float32), device=dev)[None],
+                direction=torch.as_tensor(np.asarray(vehicle_direction, np.float32), device=dev)[None],
+            )
         if self.cfg.has_relocalizer and self._origin64 is None:
             # the reference stores the FIRST pose as the relocalization
             # origin (relocalization_base_class.py:59-68); kept at float64
@@ -236,10 +239,11 @@ class PathPlanner:
                 np.array(vehicle_direction, np.float64),
             )
 
-        if self._use_sort_cache:
-            out, self._state = self._step_with_sort_cache(frame, pts, mask)
-        else:
-            out, self._state = planner_step(self.cfg, self._state, frame)
+        with span("stage.facade.step"):
+            if self._use_sort_cache:
+                out, self._state = self._step_with_sort_cache(frame, pts, mask)
+            else:
+                out, self._state = planner_step(self.cfg, self._state, frame)
 
         # one host sync a frame until the mission has relocalized
         if (
@@ -250,19 +254,19 @@ class PathPlanner:
             self._refine_reloc_f64(cones, vehicle_position, vehicle_direction)
             self._was_relocalized = True
 
-        if not return_intermediate_results:
-            return out.path[0].cpu().numpy().astype(np.float64)
-
-        (path, sl, slm, sr, srm, lv, lm, rv, rm, l2r, r2l) = _fetch(
-            (
-                out.path[0],
-                out.sorted_left[0], out.sorted_left_mask[0],
-                out.sorted_right[0], out.sorted_right_mask[0],
-                out.left_with_virtual[0], out.left_mask[0],
-                out.right_with_virtual[0], out.right_mask[0],
-                out.left_to_right[0], out.right_to_left[0],
+        with span("stage.facade.fetch"):
+            if not return_intermediate_results:
+                return out.path[0].cpu().numpy().astype(np.float64)
+            (path, sl, slm, sr, srm, lv, lm, rv, rm, l2r, r2l) = _fetch(
+                (
+                    out.path[0],
+                    out.sorted_left[0], out.sorted_left_mask[0],
+                    out.sorted_right[0], out.sorted_right_mask[0],
+                    out.left_with_virtual[0], out.left_mask[0],
+                    out.right_with_virtual[0], out.right_mask[0],
+                    out.left_to_right[0], out.right_to_left[0],
+                )
             )
-        )
 
         def unpad(arr, m):
             return np.asarray(arr, np.float64)[: int(np.sum(m))]
@@ -280,6 +284,7 @@ class PathPlanner:
             unpad_int(r2l, rm),
         )
 
+    @spanned("stage.facade.refine_f64")
     def _refine_reloc_f64(
         self,
         cones: List[FloatArray],

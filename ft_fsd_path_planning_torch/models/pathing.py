@@ -25,6 +25,7 @@ from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
 from ft_fsd_path_planning_torch.ops import spline as sp
 from ft_fsd_path_planning_torch.ops.curvature import path_curvature, uniform_filter1d_nearest
+from ft_fsd_path_planning_torch.utils.timer import spanned
 
 Tensor = torch.Tensor
 
@@ -422,6 +423,7 @@ class PathOutput(NamedTuple):
     spline_budget_hit: Tensor  # (B,) a FITPACK fit exited on its knot budget
 
 
+@spanned("stage.pathing.run")
 def run_path_calculation(
     cfg: PlannerConfig,
     inp: PathInput,

@@ -36,6 +36,7 @@ from ft_fsd_path_planning_torch.assets.known_paths import BASE_SKIDPAD_PATH
 from ft_fsd_path_planning_torch.config import PlannerConfig
 from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
+from ft_fsd_path_planning_torch.utils.timer import spanned
 
 Tensor = torch.Tensor
 
@@ -389,6 +390,7 @@ def acceleration_relocalize_once(
     return ok, -angle_to_fix, -origin_position, torch.zeros_like(origin_position)
 
 
+@spanned("stage.reloc.attempt")
 def attempt_relocalization(
     cfg: PlannerConfig,
     state: RelocState,

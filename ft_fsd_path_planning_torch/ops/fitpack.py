@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ft_fsd_path_planning_torch.ops.spline import _solve_spd_banded, chord_lengths
+from ft_fsd_path_planning_torch.utils import timer
 
 Tensor = torch.Tensor
 
@@ -45,9 +46,12 @@ _EPS_DIAG = 1e-6
 loop_syncs = 0
 
 
-def _any(active: Tensor) -> bool:
+def _any(active: Tensor, trips: str) -> bool:
+    """Whether any lane is active: one host sync, counted in ``loop_syncs``
+    and in the loop's own counter ``trips``."""
     global loop_syncs
     loop_syncs += 1
+    timer.count(trips)
     return bool(active.any())
 
 
@@ -363,6 +367,7 @@ def _fprati(p1, f1, p2, f2, p3, f3, p3_inf):
     return torch.where(p3_inf, p_inf, p_fin)
 
 
+@timer.spanned("stage.fitpack.root_rati")
 def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, skip):
     """FITPACK's p-iteration (fpcurf.f:229-330) over the lanes that need it;
     ``skip`` lanes start converged."""
@@ -387,7 +392,7 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
     it = 0
     while it < MAXIT:
         active = ~(conv | stop)
-        if not _any(active):
+        if not _any(active, "fitpack.trips.root_rati"):
             break
         c2, f2 = solve_at(p)
         # a float32 band factorization can break down on G + D^T D / p^2 when
@@ -525,6 +530,7 @@ def _tiny_fit(u: Tensor, points: Tensor, mask: Tensor, u_max: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+@timer.spanned("stage.fitpack.fit")
 def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
     """Fit the FITPACK smoothing spline through masked traces points
     (B, M, 2), mask (B, M); ``smoothing`` is FITPACK's ``s``."""
@@ -557,73 +563,76 @@ def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
     done = done0
     budget_hit = torch.zeros_like(done0)
     it = 1
-    while it <= OUTER:
-        active = ~done
-        if not _any(active):
-            break
-        # knots for this round were inserted by the previous trip; solve on them
-        b = _design(u, mask, _full_knots(t_int, n_int, u_max), n_int)
-        c, fp, resid = _lsq_solve(b, points, mask, n_int)
-        fpms = fp - s
-        newly = (torch.abs(fpms) < acc) | (fpms < 0)
-        # budget exhausted: this solve is the fall-through solve on the final set
-        budget_now = ~newly & ((n_int >= MAX_INT) | (it >= OUTER))
-        done_now = newly | budget_now
-
-        # FITPACK nplus update (fpcurf.f:150-160)
-        delta = fp_lsq - fp
-        big_delta = delta > acc
-        ratio = nplus_prev.to(dtype) * fpms / torch.where(big_delta, delta, torch.ones_like(delta))
-        npl1 = torch.where(big_delta, _f32_to_i32(ratio), nplus_prev * 2)
-        nplus = torch.minimum(
-            nplus_prev * 2,
-            torch.clamp(torch.maximum(npl1, nplus_prev // 2), min=1),
-        )
-        nplus = torch.where(n_int == 0, torch.ones_like(nplus), nplus)
-
-        fpint, nrdata = _interval_stats(u, mask, resid, t_int, n_int, endpoint_mask)
-        ti, ni, fpi, nrd = t_int, n_int, fpint, nrdata
-        limit = torch.clamp(nplus, max=NPLUS_MAX)
-        jstep = 0
-        while True:
-            ins = active & (jstep < limit) & ~done_now & (ni < MAX_INT)
-            if not _any(ins):
+    with timer.span("stage.fitpack.part1"):
+        while it <= OUTER:
+            active = ~done
+            if not _any(active, "fitpack.trips.part1"):
                 break
-            ti2, ni2, fpi2, nrd2 = _insert_knot(u, mask, ti, ni, fpi, nrd, endpoint_mask)
-            ti, ni = _sel(ins, ti2, ti), torch.where(ins, ni2, ni)
-            fpi, nrd = _sel(ins, fpi2, fpi), _sel(ins, nrd2, nrd)
-            jstep += 1
+            # knots for this round were inserted by the previous trip; solve on them
+            b = _design(u, mask, _full_knots(t_int, n_int, u_max), n_int)
+            c, fp, resid = _lsq_solve(b, points, mask, n_int)
+            fpms = fp - s
+            newly = (torch.abs(fpms) < acc) | (fpms < 0)
+            # budget exhausted: this solve is the fall-through solve on the final set
+            budget_now = ~newly & ((n_int >= MAX_INT) | (it >= OUTER))
+            done_now = newly | budget_now
 
-        keep_old = done_now
-        t_int = _sel(active, _sel(keep_old, t_int, ti), t_int)
-        n_int = torch.where(active, torch.where(keep_old, n_int, ni), n_int)
-        c_lsq = _sel(active, c, c_lsq)
-        fp_lsq = torch.where(active, fp, fp_lsq)
-        nplus_prev = torch.where(active, nplus, nplus_prev)
-        budget_hit = torch.where(active, budget_now, budget_hit)
-        done = torch.where(active, done_now, done)
-        it += 1
+            # FITPACK nplus update (fpcurf.f:150-160)
+            delta = fp_lsq - fp
+            big_delta = delta > acc
+            ratio = nplus_prev.to(dtype) * fpms / torch.where(big_delta, delta, torch.ones_like(delta))
+            npl1 = torch.where(big_delta, _f32_to_i32(ratio), nplus_prev * 2)
+            nplus = torch.minimum(
+                nplus_prev * 2,
+                torch.clamp(torch.maximum(npl1, nplus_prev // 2), min=1),
+            )
+            nplus = torch.where(n_int == 0, torch.ones_like(nplus), nplus)
+
+            fpint, nrdata = _interval_stats(u, mask, resid, t_int, n_int, endpoint_mask)
+            ti, ni, fpi, nrd = t_int, n_int, fpint, nrdata
+            limit = torch.clamp(nplus, max=NPLUS_MAX)
+            jstep = 0
+            with timer.span("stage.fitpack.insert"):
+                while True:
+                    ins = active & (jstep < limit) & ~done_now & (ni < MAX_INT)
+                    if not _any(ins, "fitpack.trips.insert"):
+                        break
+                    ti2, ni2, fpi2, nrd2 = _insert_knot(u, mask, ti, ni, fpi, nrd, endpoint_mask)
+                    ti, ni = _sel(ins, ti2, ti), torch.where(ins, ni2, ni)
+                    fpi, nrd = _sel(ins, fpi2, fpi), _sel(ins, nrd2, nrd)
+                    jstep += 1
+
+            keep_old = done_now
+            t_int = _sel(active, _sel(keep_old, t_int, ti), t_int)
+            n_int = torch.where(active, torch.where(keep_old, n_int, ni), n_int)
+            c_lsq = _sel(active, c, c_lsq)
+            fp_lsq = torch.where(active, fp, fp_lsq)
+            nplus_prev = torch.where(active, nplus, nplus_prev)
+            budget_hit = torch.where(active, budget_now, budget_hit)
+            done = torch.where(active, done_now, done)
+            it += 1
 
     # part 2 (skipped when no interior knots, or when the LSQ already sits
     # within acc of s — FITPACK returns the LSQ spline in those cases)
     fpms = fp_lsq - s
     skip_p2 = (n_int == 0) | (torch.abs(fpms) < acc)
     coef = c_lsq
-    if _any(~skip_p2):
-        t_full = _full_knots(t_int, n_int, u_max)
-        b = _design(u, mask, t_full, n_int)
-        g, rhs, live_c = _normal_eqs(b, points, n_int)
-        diag_sum = _band_chol_diag_sum(g, live_c)
-        nc_live = (n_int + K + 1).to(dtype)
-        p0 = nc_live / torch.clamp(diag_sum, min=1e-30)
-        f1_0 = fp0 - s  # p = 0: LSQ polynomial (no interior knots)
-        f3_0 = fpms  # p = inf: LSQ spline on the final knots
-        d = _disc_matrix(t_full, n_int, u_max)
-        dtd = torch.matmul(d.transpose(1, 2), d)
-        c_p2 = _root_rati(
-            b, points, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, skip_p2
-        )
-        coef = _sel(skip_p2, c_lsq, c_p2)
+    with timer.span("stage.fitpack.part2"):
+        if _any(~skip_p2, "fitpack.trips.part2"):
+            t_full = _full_knots(t_int, n_int, u_max)
+            b = _design(u, mask, t_full, n_int)
+            g, rhs, live_c = _normal_eqs(b, points, n_int)
+            diag_sum = _band_chol_diag_sum(g, live_c)
+            nc_live = (n_int + K + 1).to(dtype)
+            p0 = nc_live / torch.clamp(diag_sum, min=1e-30)
+            f1_0 = fp0 - s  # p = 0: LSQ polynomial (no interior knots)
+            f3_0 = fpms  # p = inf: LSQ spline on the final knots
+            d = _disc_matrix(t_full, n_int, u_max)
+            dtd = torch.matmul(d.transpose(1, 2), d)
+            c_p2 = _root_rati(
+                b, points, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, skip_p2
+            )
+            coef = _sel(skip_p2, c_lsq, c_p2)
 
     # tiny inputs: interpolating polynomial (degree n-1) — also the m=4 cubic
     tiny = n_valid <= 4

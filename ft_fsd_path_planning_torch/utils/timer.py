@@ -6,17 +6,27 @@ timed with the host clock; on a CUDA device with a pair of CUDA events
 around it, so the interval is the device's time for the work enqueued inside
 the block and not the time it took to enqueue it. ``device_trace`` captures
 a `torch.profiler` trace around a block.
+
+``span`` and ``count`` time parts of a frame and count events inside the
+program; ``spanned`` is ``span`` around the whole of a function. They record only inside ``recording()`` or while a `torch.profiler`
+session is recording; otherwise each is one flag check and nothing more.
+While recording, a span is also a `record_function` range under its name, so
+the profiler's trace holds it on the same clock as the device's kernels.
+Every span name starts with ``stage.``. ``table()`` reads what was recorded
+since the last ``reset()``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import Dict, List
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class Timer:
@@ -99,3 +109,96 @@ def device_trace(log_dir: str):
         yield prof
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+# ---------------------------------------------------------------------------
+# spans and counters
+# ---------------------------------------------------------------------------
+
+#: calls and host nanoseconds of each span since the last reset
+_spans: Dict[str, List[int]] = {}
+#: each counter's total since the last reset
+_counts: Dict[str, int] = {}
+#: depth of open ``recording()`` blocks
+_recording = 0
+_OFF = nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> None:
+        ns = time.perf_counter_ns() - self._t0
+        self._range.__exit__(*exc)
+        entry = _spans.get(self.name)
+        if entry is None:
+            _spans[self.name] = [1, ns]
+        else:
+            entry[0] += 1
+            entry[1] += ns
+
+
+def span(name: str):
+    """A context manager that adds the host time of its block to ``name``
+    and names the block in the profiler's trace, while recording."""
+    if _recording or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """A decorator: the function's whole body is the span ``name``. A
+    wrapper that a caller puts on the module attribute later still runs
+    outside the span."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if _recording or _autograd_profiler._is_profiler_enabled:
+                with _Span(name):
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+
+        return run
+
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``, while recording."""
+    if _recording or _autograd_profiler._is_profiler_enabled:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+@contextmanager
+def recording():
+    """Record spans and counters inside the block, with or without a
+    profiler."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def table() -> dict:
+    """``{span: {"n": calls, "ns": host nanoseconds}}`` and ``{counter:
+    total}``, recorded since the last ``reset()``."""
+    out: dict = {name: {"n": n, "ns": ns} for name, (n, ns) in _spans.items()}
+    out.update(_counts)
+    return out
+
+
+def reset() -> None:
+    """Clear every span and counter."""
+    _spans.clear()
+    _counts.clear()

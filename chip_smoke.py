@@ -5,9 +5,13 @@
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds the hand-written kernels from ``csrc/`` (B1,
-the banded Cholesky solve with its bare and its fused, refined entry, and
-B2, the fused beam search of the cone sorter), holds each against its plain
-PyTorch version on the card at the shapes the main path gives it, and
+the banded Cholesky solve with its bare and its fused, refined entry, B2,
+the fused beam search of the cone sorter, and FITPACK's part 2, one launch
+a fit), holds each against its plain PyTorch version on the card at the
+shapes the main path gives it (part 2 on every fit of a skidpad run, a
+trackdrive lap and the acceleration session, with its hairpin and its fits
+of 1,024 sites, and of a trackdrive and an acceleration batched step at
+B = 256, through ``tests/part2_check.py``), and
 drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
 of bare solves it replaces; with B2 and with the sorter's scan), then the
@@ -111,6 +115,9 @@ SERVE_KERNEL_KNOBS = ({"beam_width": 8}, {"beam_width": 64}, {"max_length": 8}, 
 SERVE_SCAN_KNOB = {"beam_width": 10}
 START = time.perf_counter()
 BROKEN_FACTORIZATION_FRAMES = (20, 22)  # acceleration session frames whose hairpin fit breaks a float32 factorization down
+# (B, M) at which the part-2 kernel is timed; 1,024 sites (acceleration's dense
+# samples) take over 48 KB of shared memory
+PART2_TIMED = ((1, 256), (1, 512), (1, 1024), (256, 512))
 BATCH_ROT_32_64_TOL = 1e-3  # the float32 step's rotation vs the same attempt in float64 on the same lane, rad
 
 
@@ -754,6 +761,148 @@ def phase_b2_shapes(cfg, dev) -> list[dict]:
     return rows
 
 
+def part2_work(args, trips: torch.Tensor) -> tuple[int, int]:
+    """(bytes, flop) the part-2 kernel needs on these inputs: every input
+    read once and the coefficients and trips written once; a flop count of
+    the basis and the normal equations (~72 a live site) and, a trip, the
+    band's assembly, B1's refined solve and fp (~22 a live site)."""
+    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    from ft_fsd_path_planning_torch.ops import fitpack
+
+    b, m = args[2].shape
+    nc = fitpack.NC
+    nbytes = b * (13 * m + 4 * (fitpack.MAX_INT + 5 + 2 * nc) + 4 * (2 * nc + 1))
+    live = args[2].sum(dim=1)
+    flops = 72 * int(live.sum()) + int((trips * (bc.refined_solve_flops(nc, 2) + 2 * 9 * nc + 22 * live)).sum())
+    return nbytes, flops
+
+
+def phase_fitpack_part2(dev) -> dict:
+    """The part-2 kernel against its plain version on every part 2 of a
+    skidpad run, of a trackdrive lap and of the acceleration session
+    through PathPlanner (the last with its hairpin, where a float32
+    factorisation breaks down and the p-iteration retries, and with fits of
+    1,024 sites, over 48 KB of shared memory), of a trackdrive batched step
+    and of an acceleration mission batched step at B = 256:
+    ``tests/part2_check.py`` holds every lane (gated lanes bit for bit,
+    lanes with the same trips within its limit, lanes whose trips differ
+    reported with |f2| against acc), with one launch a fit, B1 still
+    launched by part 1 and the masked loop's counters silent; and a set of
+    256 lanes whose knots close in on each other, built from an
+    acceleration fit (``part2_check.clustered_knots``), on which the small-p
+    trials break down. At least one lane must retry with the same trips on
+    both sides, and one call must have 1,024 sites. Then the
+    kernel's time from a CUDA graph and launched one by one at PART2_TIMED,
+    against the plain version's."""
+    from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
+    from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
+    from ft_fsd_path_planning_torch.ops import fitpack
+    from ft_fsd_path_planning_torch.parallel import batch, scenarios
+    from ft_fsd_path_planning_torch.utils import timer
+    from tests import part2_check
+
+    accel = MissionTypes.acceleration
+    accel_cfg = default_config(accel, n_cones=N_CONES)
+    skidpad = PathPlanner(MissionTypes.skidpad, device=dev)
+    trackdrive = PathPlanner(MissionTypes.trackdrive, config=default_config(n_cones=256), device=dev)
+    acceleration = PathPlanner(accel, config=accel_cfg, device=dev)
+    cfg = default_config(n_cones=N_CONES)
+    frames = scenarios.make_frame_batch(cfg, BATCH, seed=1, device=dev)
+    state = batch.make_batch_state(cfg, BATCH, dev)
+    accel_frames, _ = scenarios.mission_frame_batch(accel_cfg, BATCH, seed=0, device=dev)
+    accel_state = batch.make_batch_state(accel_cfg, BATCH, dev)
+    accel_session = scenarios.mission_sessions()["acceleration"][1]
+    accel_label = f"the acceleration session ({len(accel_session)} frames, one planner)"
+    drives = {
+        "the skidpad session (568 frames, one planner)":
+            lambda: [skidpad.calculate_path_in_global_frame(*f) for f in scenarios.skidpad_session()],
+        "a trackdrive lap (150 frames, n_cones 256)":
+            lambda: [trackdrive.calculate_path_in_global_frame(*f) for f in scenarios.closed_track_frames(seed=1, n_frames=150)],
+        accel_label:
+            lambda: [acceleration.calculate_path_in_global_frame(*f) for f in accel_session],
+        f"a trackdrive batched_step B={BATCH}": lambda: batch.batched_step(cfg, state, frames),
+        f"an acceleration mission batched_step B={BATCH}": lambda: batch.batched_step(accel_cfg, accel_state, accel_frames),
+    }
+    calls_by_drive = {}
+    for label, run in drives.items():
+        bc.reset_launch_count()
+        launches0 = fitpack.part2_launch_count
+        timer.reset()
+        with timer.recording():
+            calls = part2_check.capture(run)
+        table = timer.table()
+        timer.reset()
+        fits, launched = table["stage.fitpack.fit"]["n"], fitpack.part2_launch_count - launches0
+        log(
+            f"part 2 on {label}: fits {fits}, part-2 launches {launched} (counter {table.get('fitpack.part2.launches')}), "
+            f"B1 launches {bc.launch_count}, FITPACK trips by loop {({k: v for k, v in table.items() if k.startswith('fitpack.trips.')})}"
+        )
+        check(launched == fits == len(calls) == table.get("fitpack.part2.launches"), f"{label}: not one part-2 launch a fit")
+        check(bc.launch_count > 0, f"{label}: part 1 launched B1 no time")
+        check("fitpack.trips.part2" not in table and "fitpack.trips.root_rati" not in table, f"{label}: part 2's masked loop ran on the card")
+        calls_by_drive[label] = calls
+
+    source = next(a for a in calls_by_drive[accel_label] if int(a[4][0]) >= 2)
+    clustered = f"a {source[2].shape[1]}-site acceleration fit, its middle knot moved towards its neighbour, B={BATCH}"
+    calls_by_drive[clustered] = [part2_check.clustered_knots(source, BATCH)]
+    total, trips_seen = part2_check.Part2Comparison(), {}
+    for label, calls in calls_by_drive.items():
+        found = part2_check.Part2Comparison()
+        for args in calls:
+            part2_check.compare(args, found, label)
+            trips_seen.setdefault(tuple(args[2].shape), []).append(fitpack.fitpack_part2_cuda(*args)[1].cpu())
+        shapes = dict(Counter(tuple(a[2].shape) for a in calls))
+        log(f"part 2 kernel vs plain on {label}, (B, M) {shapes}: {found.summary()}")
+        for line in found.differ + found.faults:
+            log(f"  {line}")
+        for field in dataclasses.fields(total):
+            a, b = getattr(total, field.name), getattr(found, field.name)
+            setattr(total, field.name, max(a, b) if field.name.startswith("worst") else a + b)
+    check(not total.faults, f"the part-2 kernel disagrees with its plain version: {total.faults[:5]}")
+    check(total.retried_same_trips > 0, "no lane retried a non-finite trial with the same trips on both sides: the kernel's retry_p was not compared")
+    check(any(shape[1] == 1024 for shape in trips_seen), "no part 2 of 1,024 sites: the kernel's path above 48 KB of shared memory was not compared")
+    for shape, trips in sorted(trips_seen.items()):
+        t = torch.cat(trips)
+        ran = t[t > 0].float()
+        log(f"part 2 at (B, M) {shape}: lanes {t.numel()}, gated {int((t == 0).sum())}, trips a running lane mean "
+            f"{float(ran.mean()) if ran.numel() else 0.0!r} max {int(t.max())}, trips a launch mean {float(t.view(-1, shape[0]).max(dim=1).values.float().mean())!r}")
+
+    all_calls = [a for calls in calls_by_drive.values() for a in calls]
+    rows = []
+    for b, m in PART2_TIMED:
+        args = next(
+            (a for a in all_calls if tuple(a[2].shape) == (b, m) and int(fitpack.fitpack_part2_cuda(*a)[1].max()) > 0),
+            None,
+        )
+        if args is None:
+            log(f"part 2 kernel at (B, M) {(b, m)}: no captured call makes a trip, not timed")
+            continue
+        _, trips = fitpack.fitpack_part2_cuda(*args)
+        kernel = lambda: fitpack.fitpack_part2_cuda(*args)  # noqa: E731
+        ms, one_by_one = graph_ms(kernel, 50), cuda_ms(kernel, 50)
+        plain_ms = cuda_ms(lambda: fitpack.fitpack_part2_plain(*args), 5)
+        nbytes, flops = part2_work(args, trips)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        log(
+            f"part 2 kernel at (B, M) {(b, m)}, trips a lane {trips.tolist() if b == 1 else float(trips.float().mean())}: "
+            f"graph {ms!r} ms, one by one {one_by_one!r} ms, plain version {plain_ms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms "
+            f"({nbytes} B, {flops} flop)"
+        )
+        rows.append({"b": b, "m": m, "ms": ms, "one_by_one_ms": one_by_one, "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return {
+        "name": "fitpack_part2",
+        "route": "cuda",
+        "source": "ft_fsd_path_planning_torch/csrc/fitpack_part2.cu",
+        "replaces": "none: the masked part-2 loop of ops/fitpack.py (JAX ops/fitpack.py::_root_rati)",
+        "max_rel_err": total.worst_converged,
+        "max_rel_err_stopped": total.worst_stopped,
+        "timed": "CUDA graph replay of 50 launches; one_by_one_ms and plain_ms launched one by one",
+        "shapes": rows,
+    }
+
+
 def step_ms(step, reps: int) -> float:
     """Host-clock ms per call over ``reps`` calls, after the caller's warm-up."""
     torch.cuda.synchronize()
@@ -771,14 +920,16 @@ def time_step(step) -> tuple[float, int]:
 
 
 def kernel_count(step) -> int:
-    """Device kernels one call of ``step`` launches (torch.profiler)."""
+    """Device kernels one call of ``step`` launches (torch.profiler). The
+    profiler mirrors the program's ``stage.*`` ranges on the device's
+    timeline; those are no device work."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("stage.") for e in prof.events())
 
 
 def phase_batched_step(cfg, dev) -> dict:
@@ -1691,6 +1842,7 @@ def main() -> int:
     timed(phase_b1_vs_plain_missions, dev)
     b2 = phase_b2_vs_plain(cfg, replay_cfg, dev)
     b2_shapes = timed(phase_b2_shapes, cfg, dev)
+    part2 = timed(phase_fitpack_part2, dev)
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
@@ -1747,7 +1899,7 @@ def main() -> int:
         check(row["launches"] > 0, f"{row['name']} was launched no time by the plan server's knob requests")
     b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
-    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes}))
+    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [part2]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

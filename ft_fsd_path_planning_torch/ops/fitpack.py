@@ -12,15 +12,24 @@ computes every lane and keeps the new carry only on lanes whose own
 condition holds, which is what the vmapped while loop does, and the loop
 ends when no lane is active (one host sync per trip). Every SPD solve goes
 through ``ops/spline.py::_solve_spd_banded`` (kernel B1).
+
+Part 2 is :func:`fitpack_part2`: on a CPU tensor its plain version
+:func:`fitpack_part2_plain`, the masked loop above; on a CUDA tensor one
+launch of the hand-written kernel `csrc/fitpack_part2.cu`, in which every
+lane runs the gate, the normal equations, the initial p, the penalty and
+the whole p-iteration to its own end on the card, with no host sync.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ft_fsd_path_planning_torch.ops import kernel_build
 from ft_fsd_path_planning_torch.ops.spline import _solve_spd_banded, chord_lengths
 from ft_fsd_path_planning_torch.utils import timer
 
@@ -44,6 +53,10 @@ _EPS_DIAG = 1e-6
 #: host syncs spent on loop conditions since the last reset (one per trip
 #: check of each masked loop)
 loop_syncs = 0
+#: launches of the part-2 kernel since the last reset (plain calls do not count)
+part2_launch_count = 0
+#: the most sites a fit may have for the part-2 kernel (``kMaxSites``)
+PART2_MAX_SITES = 4096
 
 
 def _any(active: Tensor, trips: str) -> bool:
@@ -370,7 +383,10 @@ def _fprati(p1, f1, p2, f2, p3, f3, p3_inf):
 @timer.spanned("stage.fitpack.root_rati")
 def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, skip):
     """FITPACK's p-iteration (fpcurf.f:229-330) over the lanes that need it;
-    ``skip`` lanes start converged."""
+    ``skip`` lanes start converged. Returns (coefficients, trips (B,) int32):
+    a lane's trips are the loop-condition checks its own loop would make, the
+    one that ends it included, 0 for a ``skip`` lane; at B = 1 they are the
+    loop's ``fitpack.trips.root_rati`` count."""
     live = torch.arange(NC, device=b.device)[None, :] < (n_int + K + 1)[:, None]
     maskf = mask.to(b.dtype)
 
@@ -389,9 +405,12 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
     ich1, ich3 = zeros_i, zeros_i
     c_best = c_lsq
     conv, stop = skip.clone(), torch.zeros_like(skip)
+    running, trips = ~skip, zeros_i
     it = 0
     while it < MAXIT:
         active = ~(conv | stop)
+        trips = trips + running.to(trips.dtype)
+        running = running & active
         if not _any(active, "fitpack.trips.root_rati"):
             break
         c2, f2 = solve_at(p)
@@ -439,6 +458,7 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         f3_out = torch.where(b1, f2, torch.where(do_step, f3_s, f3))
         p3_inf_out = torch.where(b1, torch.zeros_like(p3_inf), torch.where(do_step, p3_inf_s, p3_inf))
 
+        # the kernel's retry_p (csrc/fitpack_part2.cu) is the same rule
         p_retry = p / _CON4
         p_retry = torch.where(~p3_inf & (p_retry >= p3), p * _CON1 + p3 * _CON9, p_retry)
 
@@ -454,7 +474,97 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         conv = conv | new_conv
         stop = stop | mono_bad
         it += 1
-    return c_best
+    return c_best, trips
+
+
+def fitpack_part2_plain(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc):
+    """FITPACK's part 2 on the final knots, the kernel's plain version.
+
+    Skipped (one host sync, the gate) when no lane has interior knots with
+    its LSQ spline farther than ``acc`` from ``s``: FITPACK returns the LSQ
+    spline there. Else the design, the normal equations, the initial p from
+    the diagonal of G's Cholesky factor, the discontinuity penalty D^T D and
+    the p-iteration :func:`_root_rati`. Returns (coefficients (B, NC, 2),
+    trips (B,) int32, as :func:`_root_rati` counts them)."""
+    dtype = points.dtype
+    fpms = fp_lsq - s
+    skip = (n_int == 0) | (torch.abs(fpms) < acc)
+    if not _any(~skip, "fitpack.trips.part2"):
+        return c_lsq, torch.zeros_like(n_int)
+    t_full = _full_knots(t_int, n_int, u_max)
+    b = _design(u, mask, t_full, n_int)
+    g, rhs, live_c = _normal_eqs(b, points, n_int)
+    diag_sum = _band_chol_diag_sum(g, live_c)
+    nc_live = (n_int + K + 1).to(dtype)
+    p0 = nc_live / torch.clamp(diag_sum, min=1e-30)
+    f1_0 = fp0 - s  # p = 0: LSQ polynomial (no interior knots)
+    f3_0 = fpms  # p = inf: LSQ spline on the final knots
+    d = _disc_matrix(t_full, n_int, u_max)
+    dtd = torch.matmul(d.transpose(1, 2), d)
+    c_p2, trips = _root_rati(b, points, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, skip)
+    return _sel(skip, c_lsq, c_p2), trips
+
+
+def fitpack_part2_cuda(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc):
+    """Launch the part-2 kernel on the current stream (no synchronisation):
+    one warp a lane, every lane to its own end. The same arguments and
+    results as :func:`fitpack_part2_plain`; raises on what the kernel does
+    not take."""
+    global part2_launch_count
+    bsz, m = mask.shape
+    f32 = (u, points, t_int, u_max, c_lsq, fp0, fp_lsq)
+    if any(a.device != u.device for a in f32 + (mask, n_int)) or u.device.type != "cuda":
+        raise ValueError("fitpack_part2_cuda takes CUDA tensors on one device")
+    if any(a.dtype != torch.float32 for a in f32) or mask.dtype != torch.bool or n_int.dtype != torch.int32:
+        raise TypeError("fitpack_part2_cuda takes float32 data, a bool mask and int32 knot counts")
+    shapes = {
+        "u": (u, (bsz, m)), "points": (points, (bsz, m, 2)), "t_int": (t_int, (bsz, MAX_INT)),
+        "n_int": (n_int, (bsz,)), "u_max": (u_max, (bsz,)), "c_lsq": (c_lsq, (bsz, NC, 2)),
+        "fp0": (fp0, (bsz,)), "fp_lsq": (fp_lsq, (bsz,)),
+    }
+    for name, (a, want) in shapes.items():
+        if tuple(a.shape) != want:
+            raise ValueError(f"fitpack_part2_cuda: {name} is {tuple(a.shape)}, expected {want}")
+    if not 1 <= m <= PART2_MAX_SITES:
+        raise ValueError(f"the part-2 kernel takes 1 to {PART2_MAX_SITES} sites, got {m}")
+    coef = torch.empty((bsz, NC, 2), dtype=torch.float32, device=u.device)
+    trips = torch.empty((bsz,), dtype=torch.int32, device=u.device)
+    if bsz == 0:
+        return coef, trips
+    args = [a.contiguous() for a in (u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq)]
+    lib = _part2_library()
+    with torch.cuda.device(u.device):
+        err = lib.fitpack_part2_f32(
+            *(a.data_ptr() for a in args), s, acc, bsz, m, coef.data_ptr(), trips.data_ptr(),
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fitpack_part2 kernel launch failed: CUDA error {err}")
+    part2_launch_count += 1
+    timer.count("fitpack.part2.launches")
+    return coef, trips
+
+
+@functools.lru_cache(maxsize=None)
+def _part2_library() -> ctypes.CDLL:
+    """The part-2 kernel's library with its C interface declared, built and bound once."""
+    lib = kernel_build.load("fitpack_part2")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fitpack_part2_f32.argtypes = [ptr] * 9 + [f32, f32, i32, i32, ptr, ptr, ptr]
+    lib.fitpack_part2_f32.restype = ctypes.c_int
+    return lib
+
+
+def fitpack_part2(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc):
+    """FITPACK's part 2 (the smoothing spline's p on the final knots) for
+    the fit's chord parameters u (B, M), points (B, M, 2), mask (B, M), the
+    final knots t_int (B, MAX_INT), n_int (B,), u_max (B,), the LSQ spline
+    c_lsq (B, NC, 2) with its SSR fp_lsq and the polynomial's fp0 (B,).
+    Returns (coefficients, trips a lane). CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    if u.device.type == "cpu":
+        return fitpack_part2_plain(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
+    return fitpack_part2_cuda(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -612,27 +722,8 @@ def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
             done = torch.where(active, done_now, done)
             it += 1
 
-    # part 2 (skipped when no interior knots, or when the LSQ already sits
-    # within acc of s — FITPACK returns the LSQ spline in those cases)
-    fpms = fp_lsq - s
-    skip_p2 = (n_int == 0) | (torch.abs(fpms) < acc)
-    coef = c_lsq
     with timer.span("stage.fitpack.part2"):
-        if _any(~skip_p2, "fitpack.trips.part2"):
-            t_full = _full_knots(t_int, n_int, u_max)
-            b = _design(u, mask, t_full, n_int)
-            g, rhs, live_c = _normal_eqs(b, points, n_int)
-            diag_sum = _band_chol_diag_sum(g, live_c)
-            nc_live = (n_int + K + 1).to(dtype)
-            p0 = nc_live / torch.clamp(diag_sum, min=1e-30)
-            f1_0 = fp0 - s  # p = 0: LSQ polynomial (no interior knots)
-            f3_0 = fpms  # p = inf: LSQ spline on the final knots
-            d = _disc_matrix(t_full, n_int, u_max)
-            dtd = torch.matmul(d.transpose(1, 2), d)
-            c_p2 = _root_rati(
-                b, points, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, skip_p2
-            )
-            coef = _sel(skip_p2, c_lsq, c_p2)
+        coef, _ = fitpack_part2(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
 
     # tiny inputs: interpolating polynomial (degree n-1) — also the m=4 cubic
     tiny = n_valid <= 4

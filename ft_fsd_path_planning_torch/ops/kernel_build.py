@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` into its own shared library, loaded with :mod:`ctypes`. Libraries
-live in ``build/kernels/`` at the repository root, keyed on a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-built once. The build happens at first use (or up front through
+``nvcc`` into its own shared library, loaded with :mod:`ctypes`; device code
+that two sources share lives in a ``csrc/*.cuh`` header. Libraries live in
+``build/kernels/`` at the repository root, keyed on a hash of the source,
+the headers it includes and the flags, so an edited source or header
+rebuilds what includes it and an unchanged one is built once. The build happens at first use (or up front through
 :func:`build_all`, which starts one ``nvcc`` per source at once); a failed
 build raises, there is no fallback.
 """
@@ -25,9 +26,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: flags a source adds to NVCC_FLAGS. beam_search.cu is held operation for
-#: operation against its plain version, which cannot fuse a product and a sum
-EXTRA_FLAGS = {"beam_search": ("-fmad=false",)}
+#: flags a source adds to NVCC_FLAGS. beam_search.cu and fitpack_part2.cu are
+#: held against plain versions, which cannot fuse a product and a sum
+EXTRA_FLAGS = {"beam_search": ("-fmad=false",), "fitpack_part2": ("-fmad=false",)}
+#: the csrc/ headers a source includes, hashed into its library's key
+HEADERS = {"banded_cholesky": ("banded_cholesky.cuh",), "fitpack_part2": ("banded_cholesky.cuh",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,7 +51,7 @@ def nvcc_flags(name: str) -> tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join((CSRC / h).read_bytes() for h in HEADERS.get(name, ()))
     key = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

@@ -10,10 +10,10 @@ under a ``torch.profiler.record_function`` range named after the innermost
 source line of this package on its Python stack and the pipeline stage (the
 first of sorting, matching, pathing, relocalization, planner on that
 stack), by a ``TorchFunctionMode``; the launches of the hand-written kernels
-B1 and B2 get a range of their own. After one step under ``torch.profiler``
+(B1, B2 and FITPACK's part 2) get a range of their own. After one step under ``torch.profiler``
 each device kernel is credited to the range that launched it, so the count
 and device time of every line and stage add up to the step's totals (a
-kernel no range owns is counted as such; B1's and B2's kernels, launched
+kernel no range owns is counted as such; the hand-written kernels, launched
 through ctypes, are credited to their wrappers' launches in launch order).
 A second step runs under
 ``torch.cuda.set_sync_debug_mode("warn")``: each host-device
@@ -127,18 +127,19 @@ class _Tagger(TorchFunctionMode):
 def _kernel_wrappers():
     """(module, name) of the wrappers that launch the hand-written kernels
     through ctypes, as the step looks them up."""
-    from ft_fsd_path_planning_torch.ops import banded_cholesky, beam_search, spline
+    from ft_fsd_path_planning_torch.ops import banded_cholesky, beam_search, fitpack, spline
 
     return [
         (spline, "banded_refined_solve_cuda"),
         (banded_cholesky, "banded_cholesky_solve_cuda"),
         (beam_search, "fused_beam_search_cuda"),
+        (fitpack, "fitpack_part2_cuda"),
     ]
 
 
 @contextmanager
 def tagged(sites: list, launches: list):
-    """Inside the block every torch call and every launch of B1 and B2 runs
+    """Inside the block every torch call and every launch of a hand-written kernel runs
     under a range naming its Site; ``launches`` receives the range of each
     kernel launch, in order."""
     tagger = _Tagger(sites)
@@ -194,10 +195,11 @@ def attribute_kernels(run, device: torch.device) -> dict:
         total = sum(v[0] for v in per_site.values())
         return {"unit": "torch calls", "sites": sites, "per_site": per_site, "total": total,
                 "total_ms": sum(v[1] for v in per_site.values()), "unowned": 0, "wall_ms": wall_ms}
-    # the device timeline also mirrors the ranges themselves (user
-    # annotations): those are no device work
+    # the device timeline also mirrors the ranges themselves, this tool's and
+    # the program's own spans (user annotations): those are no device work
     device_events = [
-        e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(_RANGE)
+        e for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith((_RANGE, "stage."))
     ]
     # the profiler hands a kernel to every CPU event of its correlation id;
     # of several, the innermost (latest to start) launched it
@@ -217,7 +219,7 @@ def attribute_kernels(run, device: torch.device) -> dict:
         per_site[key][0] += len(kernels)
         per_site[key][1] += sum(k.duration for k in kernels) / 1e3
         owned += len(kernels)
-    # B1 and B2 are launched through ctypes, outside any PyTorch op, so the
+    # the hand-written kernels are launched through ctypes, outside any PyTorch op, so the
     # profiler may link their kernels to no range: they are credited to the
     # launches the wrappers recorded, in launch order (one stream)
     hand = sorted((e for e in device_events if _hand_written(e.name)), key=lambda e: e.time_range.start)
@@ -236,8 +238,8 @@ def attribute_kernels(run, device: torch.device) -> dict:
 
 
 def _hand_written(kernel_name: str) -> bool:
-    """Whether a device kernel is B1 or B2 (csrc/)."""
-    return "banded_cholesky_kernel" in kernel_name or "beam_search_kernel" in kernel_name
+    """Whether a device kernel is one of csrc/'s: B1, B2 or FITPACK's part 2."""
+    return any(k in kernel_name for k in ("banded_cholesky_kernel", "beam_search_kernel", "fitpack_part2_kernel"))
 
 
 def attribute_syncs(run, device: torch.device) -> dict | None:

@@ -12,6 +12,8 @@ there the JAX package's own dense and banded solvers already differ by
 about 0.5 mm.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,11 @@ import jax
 import jax.numpy as jnp
 
 from ft_fsd_path_planning_tpu.ops import fitpack as jfp
+from ft_fsd_path_planning_torch import PathPlanner
 from ft_fsd_path_planning_torch.ops import fitpack as tfp
+from ft_fsd_path_planning_torch.parallel.scenarios import skidpad_session
+from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
+from ft_fsd_path_planning_torch.utils import timer
 from tests.torch_parity import seeded_traces
 
 # the port's ops are small tensors: one intra-op thread is as fast here and
@@ -36,10 +42,44 @@ def _assert_within_tolerance(ours, theirs, inside, budget_hit):
     assert dev[budget_hit].max(initial=0.0) < 5e-3, dev
 
 
-@pytest.fixture(scope="module", params=[(0, 0.2, 0.05), (1, 0.01, 0.05), (2, 0.2, 0.3)])
+#: skidpad session frames whose fits are held to the JAX package: the
+#: entry straight, both circles, the exit
+SKIDPAD_FRAMES = (0, 70, 140, 210, 280, 350, 420, 540)
+
+
+@functools.lru_cache(maxsize=None)
+def _skidpad_fits(s: float):
+    """(points, mask) of the fits with smoothing ``s`` that the port's facade
+    makes on SKIDPAD_FRAMES, each frame the first of a new planner, one row
+    a frame: the two fits of a frame of the benchmark cell skidpad.online
+    (s = 0.01 on 256 sites, s = 0.2 on 512)."""
+    frames = skidpad_session()
+    rows = []
+    original = tfp.fitpack_fit
+
+    def recording(points, mask, smoothing):
+        if np.float32(smoothing) == np.float32(s):
+            rows.append((points.numpy().copy(), mask.numpy().copy()))
+        return original(points, mask, smoothing)
+
+    for k in SKIDPAD_FRAMES:
+        planner = PathPlanner(MissionTypes.skidpad, device="cpu")
+        tfp.fitpack_fit = recording
+        try:
+            planner.calculate_path_in_global_frame(*frames[k])
+        finally:
+            tfp.fitpack_fit = original
+    return np.concatenate([p for p, _ in rows]), np.concatenate([m for _, m in rows])
+
+
+#: (seed, s, noise) of seeded traces of 64 sites; or ("skidpad", s)
+FIT_CASES = [(0, 0.2, 0.05), (1, 0.01, 0.05), (2, 0.2, 0.3), ("skidpad", 0.01), ("skidpad", 0.2)]
+
+
+@pytest.fixture(scope="module", params=FIT_CASES)
 def fits(request):
-    seed, s, noise = request.param
-    pts, mask = seeded_traces(seed, 8, 64, noise)
+    seed, s, *noise = request.param
+    pts, mask = _skidpad_fits(s) if seed == "skidpad" else seeded_traces(seed, 8, 64, *noise)
     ours = tfp.fitpack_fit(torch.tensor(pts), torch.tensor(mask), s)
     theirs = jax.jit(jax.vmap(lambda p, m: jfp.fitpack_fit(p, m, s)))(pts, mask)
     return pts, mask, ours, jax.tree.map(np.asarray, theirs)
@@ -82,3 +122,82 @@ def test_loop_syncs_are_counted():
     tfp.fitpack_fit(torch.tensor(pts), torch.tensor(mask), 0.2)
     # at least the part-1 entry check and the part-2 gate
     assert tfp.loop_syncs >= 2
+
+
+# --- part 2: the plain version of the CUDA kernel (csrc/fitpack_part2.cu) ---
+
+
+def _part2_args(seed: int, s: float, m: int, live):
+    """The arguments fitpack_fit hands part 2 on seeded traces, captured."""
+    pts, mask = seeded_traces(seed, 6, m, 0.05, live)
+    seen = []
+    original = tfp.fitpack_part2
+
+    def recording(*args):
+        seen.append(args)
+        return original(*args)
+
+    tfp.fitpack_part2 = recording
+    try:
+        tfp.fitpack_fit(torch.tensor(pts), torch.tensor(mask), s)
+    finally:
+        tfp.fitpack_part2 = original
+    (args,) = seen
+    return args
+
+
+def _lane(args, i):
+    return tuple(a[i : i + 1] if isinstance(a, torch.Tensor) else a for a in args)
+
+
+@pytest.mark.parametrize("seed,s,m,live", [(5, 0.01, 256, (166, 204)), (6, 0.2, 512, (25, 89))])
+def test_part2_trips_add_up_to_the_root_rati_counter(seed, s, m, live):
+    args = _part2_args(seed, s, m, live)
+    timer.reset()
+    with timer.recording():
+        coef, trips = tfp.fitpack_part2_plain(*args)
+        singles = [tfp.fitpack_part2_plain(*_lane(args, i)) for i in range(args[2].shape[0])]
+    table = timer.table()
+    timer.reset()
+    one_by_one = sum(int(t) for _, t in singles)
+    # at B = 1 a lane's trips are its loop's checks; a batch checks until
+    # its slowest lane ends
+    assert table["fitpack.trips.root_rati"] == int(trips.max()) + one_by_one
+    assert one_by_one == int(trips.sum()) > 0
+    for i, (c, t) in enumerate(singles):
+        assert int(t) == int(trips[i])
+        torch.testing.assert_close(c[0], coef[i], rtol=0, atol=1e-4)
+
+
+def test_part2_gated_lanes_return_the_lsq_spline():
+    args = list(_part2_args(7, 0.2, 64, (30, 60)))
+    u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc = args
+    n_int = n_int.clone()
+    fp_lsq = fp_lsq.clone()
+    n_int[1] = 0  # no interior knot
+    fp_lsq[2] = s + 0.5 * acc  # the LSQ spline within acc of s
+    _, trips_before = tfp.fitpack_part2_plain(*args)
+    assert int(trips_before[0]) > 0  # lane 0 runs the p-iteration
+    coef, trips = tfp.fitpack_part2_plain(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
+    for i in (1, 2):
+        assert torch.equal(coef[i], c_lsq[i]) and int(trips[i]) == 0
+    assert not torch.equal(coef[0], c_lsq[0])
+    # a batch of gated lanes alone makes no trip and no solve
+    gated = _lane((u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc), 1)
+    coef1, trips1 = tfp.fitpack_part2_plain(*gated)
+    assert torch.equal(coef1, c_lsq[1:2]) and int(trips1[0]) == 0
+
+
+def test_part2_dispatch_takes_the_plain_version_on_the_cpu():
+    args = _part2_args(8, 0.01, 64, None)
+    launches = tfp.part2_launch_count
+    coef, trips = tfp.fitpack_part2(*args)
+    want, want_trips = tfp.fitpack_part2_plain(*args)
+    assert torch.equal(coef, want) and torch.equal(trips, want_trips)
+    assert tfp.part2_launch_count == launches
+
+
+def test_part2_cuda_wrapper_refuses_what_the_kernel_does_not_take():
+    args = _part2_args(9, 0.2, 64, None)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfp.fitpack_part2_cuda(*args)

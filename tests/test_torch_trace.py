@@ -13,7 +13,9 @@
   attribute, as the benchmark's probes put them, are still called.
 """
 
+import importlib.util
 from contextlib import nullcontext
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -295,3 +297,24 @@ def test_off_path_records_nothing_and_allocates_no_span():
     timer.reset()
     assert table["c"] == 4 and table["stage.x"]["n"] == 1
     assert timer.table() == {}
+
+
+PART2_SHARE = Path(__file__).resolve().parents[1] / "benchmark" / "metrics" / "fitpack_part2_kernel_share.py"
+FITS = {"stage.fitpack.fit": {"n": 4, "ns": 1}}
+
+
+@pytest.mark.parametrize("table,want", [
+    ({**FITS, "fitpack.part2.launches": 4}, 1.0),
+    ({**FITS, "fitpack.part2.launches": 2}, 0.5),
+    ({**FITS, "fitpack.trips.part2": 4, "fitpack.trips.root_rati": 30}, None),  # the masked loop: no launch
+    ({}, None),
+], ids=["every fit", "half the fits", "no counter", "nothing recorded"])
+def test_part2_kernel_share_is_launches_over_fits(table, want, monkeypatch):
+    """The benchmark's reader of `fitpack.part2.launches` (the counter the
+    part-2 kernel's wrapper adds to once a launch): launches over the calls
+    of `stage.fitpack.fit`, or nothing where the program has no counter."""
+    spec = importlib.util.spec_from_file_location("fitpack_part2_kernel_share", PART2_SHARE)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    monkeypatch.setattr(timer, "table", lambda: table)
+    assert reader.read({"units": 3}) == want

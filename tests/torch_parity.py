@@ -32,13 +32,13 @@ def path_parity_deviation(ref_path: np.ndarray, our_path: np.ndarray) -> float:
     )
 
 
-def seeded_traces(seed: int, batch: int, m: int, noise: float = 0.05):
+def seeded_traces(seed: int, batch: int, m: int, noise: float = 0.05, live: tuple[int, int] | None = None):
     """(points (B, M, 2) f32, mask (B, M)) of sine-shaped traces of varying
-    length (3..M valid points) with Gaussian noise."""
+    length (3..M valid points, or ``live`` = (lo, hi)) with Gaussian noise."""
     rng = np.random.default_rng(seed)
     pts = np.zeros((batch, m, 2), np.float32)
     mask = np.zeros((batch, m), bool)
-    lengths = np.linspace(3, m, batch).astype(int)
+    lengths = np.linspace(*(live or (3, m)), batch).astype(int)
     for b, n in enumerate(lengths):
         x = np.linspace(0.0, 1.5 * n, n)
         y = 6.0 * np.sin(x / 9.0 + b) + rng.normal(0.0, noise, n)

@@ -790,8 +790,11 @@ def phase_fitpack_part2(dev) -> dict:
     launched by part 1 and the masked loop's counters silent; and a set of
     256 lanes whose knots close in on each other, built from an
     acceleration fit (``part2_check.clustered_knots``), on which the small-p
-    trials break down. At least one lane must retry with the same trips on
-    both sides, and one call must have 1,024 sites. Then the
+    trials break down, and the lanes of that set whose plain trial breaks
+    down; and the trackdrive witness, whose branch-2 step falls back inside
+    its bracket and converges. At least one lane must retry with the same
+    trips on both sides, the witness must converge, and one call must have
+    1,024 sites. Then the
     kernel's time from a CUDA graph and launched one by one at PART2_TIMED,
     against the plain version's."""
     from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
@@ -846,6 +849,10 @@ def phase_fitpack_part2(dev) -> dict:
     source = next(a for a in calls_by_drive[accel_label] if int(a[4][0]) >= 2)
     clustered = f"a {source[2].shape[1]}-site acceleration fit, its middle knot moved towards its neighbour, B={BATCH}"
     calls_by_drive[clustered] = [part2_check.clustered_knots(source, BATCH)]
+    broken = part2_check.broken_trials(source, BATCH)
+    calls_by_drive[f"the {broken[2].shape[0]} lanes of that set whose plain trial breaks down"] = [broken]
+    witness = part2_check.witness(dev)
+    calls_by_drive["the trackdrive witness (seed 3100000006, frame 22: 12 of 64 sites, s = 0.2)"] = [witness]
     total, trips_seen = part2_check.Part2Comparison(), {}
     for label, calls in calls_by_drive.items():
         found = part2_check.Part2Comparison()
@@ -860,7 +867,11 @@ def phase_fitpack_part2(dev) -> dict:
             a, b = getattr(total, field.name), getattr(found, field.name)
             setattr(total, field.name, max(a, b) if field.name.startswith("worst") else a + b)
     check(not total.faults, f"the part-2 kernel disagrees with its plain version: {total.faults[:5]}")
-    check(total.retried_same_trips > 0, "no lane retried a non-finite trial with the same trips on both sides: the kernel's retry_p was not compared")
+    check(total.retried_same_trips > 0, "no lane retried a non-finite trial with the same trips on both sides: the kernel's too_small_p after a breakdown was not compared")
+    w_coef, _ = fitpack.fitpack_part2_cuda(*witness)
+    w_f = abs(float(part2_check.lane_fp(witness, w_coef)[0]) - witness[9])
+    log(f"part 2 kernel on the trackdrive witness: |fp - s| {w_f!r} against acc {witness[10]!r}")
+    check(w_f < witness[10], "the part-2 kernel does not converge on the trackdrive witness")
     check(any(shape[1] == 1024 for shape in trips_seen), "no part 2 of 1,024 sites: the kernel's path above 48 KB of shared memory was not compared")
     for shape, trips in sorted(trips_seen.items()):
         t = torch.cat(trips)

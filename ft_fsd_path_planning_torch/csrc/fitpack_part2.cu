@@ -19,8 +19,8 @@
 //   * FITPACK's p-iteration (fpcurf.f:229-330, _root_rati), up to kMaxIt
 //     trips: A = G + D^T D / p^2, B1's refined solve, fp over the live sites
 //     from the four basis terms, then the convergence test, branch 1, branch
-//     2, the monotonicity stop and the rational step (fprati), or, for a
-//     trial that is not finite, the retry with a larger p (retry_p).
+//     2, the monotonicity stop and the rational step (fprati); a trial that
+//     is not finite takes branch 2's step (too_small_p).
 //
 // The lane writes its coefficients and its trip count: the loop-condition
 // checks its own loop makes, the one that ends it included (0 for a gated
@@ -109,13 +109,15 @@ __device__ float fprati(float p1, float f1, float p2, float f2, float p3, float 
   return p3_inf ? p_inf : p_fin;
 }
 
-// The next p after a trial whose float32 factorisation broke down (its
-// solution or fp not finite): as if p had been too small, D^T D / p^2 shrinks
-// and the system becomes solvable; the carry is kept. The same rule as the
-// plain version's p_retry in _root_rati, and the one place to change it.
-__device__ float retry_p(float p, float p3, bool p3_inf) {
-  const float p_retry = p / kCon4;
-  return (!p3_inf && p_retry >= p3) ? p * kCon1 + p3 * kCon9 : p_retry;
+// Branch 2's step, after a trial whose p was too small: a larger p that
+// falls back inside the bracket where it would reach p3 (fpcurf.f:
+// if(p.ge.p3)). A trial whose float32 factorisation broke down (its solution
+// or fp not finite) takes it too, keeping its bracket and carry: D^T D / p^2
+// shrinks and the system becomes solvable. The same rule as the plain
+// version's p_b2 in _root_rati, and the one place to change it here.
+__device__ float too_small_p(float p, float p3, bool p3_inf) {
+  const float p_next = p / kCon4;
+  return (!p3_inf && p_next >= p3) ? p * kCon1 + p3 * kCon9 : p_next;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -316,7 +318,7 @@ fitpack_part2_kernel(const float* __restrict__ u, const float* __restrict__ pts,
     const float f2 = fp - s;
 
     if (!finite || !isfinite(f2)) {
-      p = retry_p(p, p3, p3_inf);
+      p = too_small_p(p, p3, p3_inf);
       __syncwarp();
       continue;
     }
@@ -333,8 +335,6 @@ fitpack_part2_kernel(const float* __restrict__ u, const float* __restrict__ pts,
     const bool ich3_set = !ich3 && !b1 && f2 < 0.0f;
     // branch 2: the initial p was too small
     const bool b2 = !b1 && !ich1 && f1 - f2 <= acc;
-    float p_b2 = p / kCon4;
-    if (!p3_inf && p_b2 <= p3) p_b2 = p * kCon1 + p3 * kCon9;
     const bool ich1_set = !b1 && !ich1 && !b2 && f2 > 0.0f;
     // the monotonicity test fails: stop with this spline (FITPACK's ier = 2)
     const bool mono_bad = !b1 && !b2 && (f1 <= f2 || f2 <= f3);
@@ -346,7 +346,7 @@ fitpack_part2_kernel(const float* __restrict__ u, const float* __restrict__ pts,
     } else if (b2) {
       p1 = p;
       f1 = f2;
-      p = p_b2;
+      p = too_small_p(p, p3, p3_inf);
     } else if (mono_bad) {
       done = true;
     } else {  // the rational step

@@ -18,6 +18,7 @@ from ft_fsd_path_planning_torch.config import PlannerConfig
 from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
+from ft_fsd_path_planning_torch.utils.timer import spanned
 
 Tensor = torch.Tensor
 
@@ -318,6 +319,7 @@ def _cones_for_other_side(
     return combined, combined_mask, is_virtual
 
 
+@spanned("stage.matching.run")
 def run_cone_matching(cfg: PlannerConfig, inp: MatchingInput) -> MatchingOutput:
     """Reference calculate_virtual_cones_for_both_sides (:479-588)."""
     n_l = torch.sum(inp.left_mask, dim=1)

@@ -29,6 +29,7 @@ from ft_fsd_path_planning_torch.models.sorting_cost import left_sign
 from ft_fsd_path_planning_torch.ops import beam_search as bs
 from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
+from ft_fsd_path_planning_torch.utils import timer
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 
 Tensor = torch.Tensor
@@ -313,6 +314,7 @@ def _beam_search_side(
             weights=tuple(float(sorting_cost.WEIGHTS[i]) for i in (0, 1, 2, 3, 6)),
             gates=dict(_gate_items(cfg)),
         )
+        timer.count("sorting.b2.launches")  # B2's plain version on the CPU; the scan counts none
         alive = alive_f > 0.5
     else:
         feats, alive = _beam_scan(
@@ -744,6 +746,7 @@ class SortingOutput(NamedTuple):
     right_mask: Tensor  # (B, L)
 
 
+@timer.spanned("stage.sorting.run")
 def run_cone_sorting(
     cfg: PlannerConfig,
     points: Tensor,

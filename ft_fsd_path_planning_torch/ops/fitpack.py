@@ -417,9 +417,9 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         # a float32 band factorization can break down on G + D^T D / p^2 when
         # p is small against the data's scale (a 100 m hairpin: D^T D / p^2
         # ~1e9 beside G ~1e1, a pivot cancels to <= 0 and the solve returns
-        # inf or NaN). Such a lane keeps its carry and retries with a larger
-        # p, as if p had been too small: D^T D / p^2 shrinks and the system
-        # becomes solvable. Without this the NaN would stay in p for good.
+        # inf or NaN). Such a trial counts as a p that was too small: the lane
+        # keeps its bracket and its carry and takes branch 2's step, so the
+        # next p lies in (p, p3), where D^T D / p^2 is smaller.
         broke = active & ~torch.isfinite(f2)
         active = active & ~broke
         c_best = _sel(active, c2, c_best)
@@ -432,10 +432,13 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         p_b1 = torch.where(p_b1 <= p1, p1 * _CON9 + p * _CON1, p_b1)
         ich3_set = active & ~new_conv & (ich3 == 0) & ~b1 & (f2 < 0)
 
-        # branch 2: initial p too small
+        # branch 2: initial p too small. A step beyond p3 falls back inside
+        # the bracket (fpcurf.f: if(p.ge.p3)); the JAX package, like SciPy's
+        # Python port of this loop, tests p <= p3 and so can leave it. The
+        # kernel's too_small_p (csrc/fitpack_part2.cu) is the same rule.
         b2 = active & ~new_conv & ~b1 & (ich1 == 0) & (f1 - f2 <= acc)
         p_b2 = p / _CON4
-        p_b2 = torch.where(~p3_inf & (p_b2 <= p3), p * _CON1 + p3 * _CON9, p_b2)
+        p_b2 = torch.where(~p3_inf & (p_b2 >= p3), p * _CON1 + p3 * _CON9, p_b2)
         ich1_set = active & ~new_conv & ~b1 & (ich1 == 0) & ~b2 & (f2 > 0)
 
         # monotonicity failure -> stop with current spline (ier=2)
@@ -458,12 +461,8 @@ def _root_rati(b, y, mask, g, rhs, dtd, s, acc, p0, f1_0, f3_0, c_lsq, n_int, sk
         f3_out = torch.where(b1, f2, torch.where(do_step, f3_s, f3))
         p3_inf_out = torch.where(b1, torch.zeros_like(p3_inf), torch.where(do_step, p3_inf_s, p3_inf))
 
-        # the kernel's retry_p (csrc/fitpack_part2.cu) is the same rule
-        p_retry = p / _CON4
-        p_retry = torch.where(~p3_inf & (p_retry >= p3), p * _CON1 + p3 * _CON9, p_retry)
-
         # lanes whose loop already ended keep their carry
-        p = torch.where(active, p_out, torch.where(broke, p_retry, p))
+        p = torch.where(active, p_out, torch.where(broke, p_b2, p))
         p1 = torch.where(active, p1_out, p1)
         f1 = torch.where(active, f1_out, f1)
         p3 = torch.where(active, p3_out, p3)

@@ -15,6 +15,11 @@ Each lane falls in one class:
   float32 factorisation that breaks down on one side only. These lanes are
   reported, with |fp - s| against acc on both sides.
 
+The inputs it builds besides the program's own calls: the trackdrive
+witness (:func:`witness`), whose p-iteration steps back inside its bracket,
+and lanes whose knots close in on each other (:func:`clustered_knots`,
+:func:`broken_trials`), whose small-p trials break down.
+
 The two differ in the order of their sums and in the initial p (the kernel
 takes B1's factor of G), nothing else.
 """
@@ -30,6 +35,24 @@ from ft_fsd_path_planning_torch.ops import fitpack
 #: max |kernel - plain| over the coefficients of a lane with the same trips on
 #: both sides, relative to its largest
 PART2_REL_TOL = 1e-4
+
+#: the centerline fit of frame 22 of a trackdrive-fsg lap (the benchmark's
+#: trackdrive.laps, seed 3100000006): 12 points, s = 0.2. Its p-iteration
+#: takes branch 2 (p too small) after p3 is set, and 25 p lies beyond p3; a
+#: step left outside the bracket stopped it at fp = 0.1288 (FITPACK's ier =
+#: 2, 19.8 mm off the reference's path), the step back inside the bracket
+#: converges to fp = 0.20014, as SciPy's splprep does
+WITNESS_POINTS = (
+    (27.846450805664062, 27.085050582885742), (25.45254898071289, 29.693950653076172),
+    (22.70775032043457, 31.78744888305664), (19.551651000976562, 33.33380126953125),
+    (16.144699096679688, 34.324546813964844), (12.691949844360352, 34.74970245361328),
+    (9.18019962310791, 34.7447509765625), (5.698299884796143, 34.3119010925293),
+    (2.238999843597412, 33.664100646972656), (-1.1662499904632568, 32.87525177001953),
+    (-4.580349922180176, 32.1556510925293), (-8.030399322509766, 31.44335174560547),
+)
+WITNESS_S = 0.2
+#: the sites of the program's centerline fit (pathing's 64-row buffer)
+WITNESS_SITES = 64
 
 
 def capture(run) -> list[tuple]:
@@ -51,11 +74,44 @@ def capture(run) -> list[tuple]:
     return seen
 
 
+def witness_fit_inputs(device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """(points (1, 64, 2), mask (1, 64)) of the witness fit, as the program
+    pads it."""
+    points = torch.zeros((1, WITNESS_SITES, 2), dtype=torch.float32)
+    points[0, : len(WITNESS_POINTS)] = torch.tensor(WITNESS_POINTS, dtype=torch.float32)
+    mask = torch.arange(WITNESS_SITES)[None] < len(WITNESS_POINTS)
+    return points.to(device), mask.to(device)
+
+
+def witness(device="cpu") -> tuple:
+    """The part-2 call of the witness fit."""
+    points, mask = witness_fit_inputs(device)
+    (args,) = capture(lambda: fitpack.fitpack_fit(points, mask, WITNESS_S))
+    return args
+
+
+def witness_scipy():
+    """SciPy's splprep on the witness points, float64: (tck, u, fp, ier)."""
+    import numpy as np
+    from scipy.interpolate import splprep
+
+    x = np.asarray(WITNESS_POINTS, dtype=np.float64)
+    u = np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(x, axis=0), axis=1))])
+    (tck, _), fp, ier, _ = splprep([x[:, 0], x[:, 1]], u=u, s=WITNESS_S, k=3, full_output=True)
+    return tck, u, fp, ier
+
+
 def lane_fp(args, coef: torch.Tensor) -> torch.Tensor:
     """Each lane's SSR over its live sites for the coefficients ``coef``."""
     u, points, mask, t_int, n_int, u_max = args[:6]
     b = fitpack._design(u, mask, fitpack._full_knots(t_int, n_int, u_max), n_int)
     return ((b @ coef - points) ** 2).sum(dim=2).mul(mask).sum(dim=1)
+
+
+def fit_fp(fit: fitpack.FpSpline, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each lane's SSR over its live sites for the fitted spline ``fit``."""
+    u, _, _ = fitpack.chord_lengths(points, mask)
+    return lane_fp((u, points, mask, fit.t_int, fit.n_int, fit.u_max), fit.coef)
 
 
 def plain_with_retries(args) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -103,6 +159,18 @@ def clustered_knots(args, batch: int = 256) -> tuple:
     b = fitpack._design(u, mask, fitpack._full_knots(t, n_int, u_max), n_int)
     c_lsq, fp_lsq, _ = fitpack._lsq_solve(b, points, mask, n_int)
     return u, points, mask, t, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc
+
+
+def broken_trials(args, batch: int = 256) -> tuple:
+    """The lanes of :func:`clustered_knots` on which a trial of the plain
+    version's p-iteration is not finite (its float32 factorisation breaks
+    down) and the lane takes branch 2's step with its bracket kept."""
+    clustered = clustered_knots(args, batch)
+    _, _, retried = plain_with_retries(clustered)
+    if not bool(retried.any()):
+        raise ValueError("no lane of the clustered set breaks down")
+    keep = torch.nonzero(retried).flatten()
+    return tuple(a[keep] if isinstance(a, torch.Tensor) else a for a in clustered)
 
 
 @dataclasses.dataclass

@@ -10,6 +10,14 @@ that met their smoothing target, and to 5e-3 m on fits that stopped on the
 knot budget: those carry 24 interior knots on a few dozen noisy points, and
 there the JAX package's own dense and banded solvers already differ by
 about 0.5 mm.
+
+One departure, on purpose: where the p-iteration's branch 2 (p too small)
+steps beyond p3, the port pulls p back inside the bracket, as FITPACK's
+fpcurf.f does; the JAX package, like SciPy's Python port of the loop, does
+not, and stops there on the monotonicity test. The trackdrive witness
+(`tests/part2_check.py::WITNESS_POINTS`) is such a fit: the knots agree,
+the port meets its smoothing target and the JAX package ends far from it.
+The cases above take no such step.
 """
 
 import functools
@@ -27,6 +35,7 @@ from ft_fsd_path_planning_torch.ops import fitpack as tfp
 from ft_fsd_path_planning_torch.parallel.scenarios import skidpad_session
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
 from ft_fsd_path_planning_torch.utils import timer
+from tests import part2_check
 from tests.torch_parity import seeded_traces
 
 # the port's ops are small tensors: one intra-op thread is as fast here and
@@ -114,6 +123,22 @@ def test_eval_every_matches(fits):
     np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
     np.testing.assert_array_equal(grid_t.numpy(), np.asarray(grid_j))
     _assert_within_tolerance(pts_t.numpy(), np.asarray(pts_j), np.asarray(valid_j), theirs.budget_hit)
+
+
+def test_witness_departs_from_the_jax_package_where_fitpack_keeps_its_bracket():
+    points, mask = part2_check.witness_fit_inputs()
+    s = part2_check.WITNESS_S
+    ours = tfp.fitpack_fit(points, mask, s)
+    theirs = jax.tree.map(np.asarray, jax.jit(jax.vmap(lambda p, m: jfp.fitpack_fit(p, m, s)))(points.numpy(), mask.numpy()))
+    # part 1 agrees: the same knots
+    np.testing.assert_array_equal(ours.n_int.numpy(), theirs.n_int)
+    n = int(theirs.n_int[0])
+    np.testing.assert_allclose(ours.t_int.numpy()[0, :n], theirs.t_int[0, :n], atol=1e-4)
+    # part 2 departs: the port converges, the JAX package stops unconverged
+    acc = tfp.TOL * s
+    assert abs(float(part2_check.fit_fp(ours, points, mask)[0]) - s) <= acc
+    fp_jax = float(part2_check.fit_fp(tfp.FpSpline(*(torch.tensor(a) for a in theirs)), points, mask)[0])
+    assert fp_jax < s - 100 * acc
 
 
 def test_loop_syncs_are_counted():

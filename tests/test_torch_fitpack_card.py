@@ -65,14 +65,24 @@ def _acceleration() -> list[tuple]:
     return part2_check.capture(lambda: [planner.calculate_path_in_global_frame(*frames[i]) for i in (0, 20, 22, 37)])
 
 
-def _clustered() -> list[tuple]:
-    """acceleration frame 0's fit of 704 sites, its middle knot moved towards
-    its neighbour lane by lane (B = 256): small-p trials break down."""
+def _acceleration_fit() -> tuple:
+    """The part-2 call of acceleration frame 0's fit of 704 sites."""
     frames = scenarios.mission_sessions()["acceleration"][1]
     cfg = default_config(MissionTypes.acceleration, n_cones=128)
     planner = PathPlanner(MissionTypes.acceleration, config=cfg, device="cuda")
     calls = part2_check.capture(lambda: planner.calculate_path_in_global_frame(*frames[0]))
-    return [part2_check.clustered_knots(next(a for a in calls if a[2].shape[1] == 704))]
+    return next(a for a in calls if a[2].shape[1] == 704)
+
+
+def _clustered() -> list[tuple]:
+    """acceleration frame 0's fit of 704 sites, its middle knot moved towards
+    its neighbour lane by lane (B = 256): small-p trials break down."""
+    return [part2_check.clustered_knots(_acceleration_fit())]
+
+
+def _broken_trials() -> list[tuple]:
+    """The lanes of that clustered set whose plain trial breaks down."""
+    return [part2_check.broken_trials(_acceleration_fit())]
 
 
 def _seeded(seed: int, s: float, m: int, live, bsz: int) -> list[tuple]:
@@ -86,6 +96,9 @@ CASES = {
     "trackdrive batched_step B=256": _batched_step,
     "acceleration frames 0, 20, 22, 37 B=1": _acceleration,
     "acceleration fit with clustered knots (256, 704)": _clustered,
+    "clustered lanes whose trial breaks down (704 sites)": _broken_trials,
+    # a step of branch 2 that the bracket pulls back inside
+    "trackdrive witness (1, 64)": lambda: [part2_check.witness("cuda")],
     # acceleration's dense samples: 1,024 sites, over 48 KB of shared memory
     "seeded traces (8, 1024)": lambda: _seeded(2, 0.2, 1024, (40, 700), 8),
     # long noisy traces: many lanes stop unconverged on the knot budget
@@ -107,5 +120,26 @@ def test_part2_kernel_matches_its_plain_version(case):
     print(found.summary(), *found.differ, sep="\n")
     assert not found.faults, found.faults
     assert found.converged > 0
-    if case.startswith("acceleration fit with clustered knots"):
+    if case.startswith(("acceleration fit with clustered knots", "clustered lanes")):
         assert found.retried_same_trips > 0
+    if case.startswith("clustered lanes"):
+        assert found.retried == found.lanes
+    if case.startswith("trackdrive witness"):
+        assert found.converged == found.lanes == 1
+
+
+def test_witness_fit_on_the_card_is_scipys():
+    """The witness fit on the card converges (|fp - s| <= acc) and lies
+    within 1 mm of SciPy's splprep on the same points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from scipy.interpolate import splev
+
+    points, mask = part2_check.witness_fit_inputs("cuda")
+    fit = tfp.fitpack_fit(points, mask, part2_check.WITNESS_S)
+    tck, u, fp_ref, _ = part2_check.witness_scipy()
+    grid = np.linspace(0.0, u[-1], 400)
+    ours = tfp.fitpack_eval(fit, torch.tensor(grid, dtype=torch.float32, device="cuda")[None])[0].cpu().numpy()
+    fp = float(part2_check.fit_fp(fit, points, mask)[0])
+    assert abs(fp - part2_check.WITNESS_S) <= tfp.TOL * part2_check.WITNESS_S, (fp, fp_ref)
+    assert np.linalg.norm(ours - np.stack(splev(grid, tck), axis=1), axis=1).max() < 1e-3

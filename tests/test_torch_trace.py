@@ -2,8 +2,9 @@
 
 * Outside ``recording()`` and with no profiler running nothing is recorded.
 * Inside it, a few facade frames give every span of the mission, nested as
-  the program nests them, and FITPACK's trip counters add up to
-  `loop_syncs`.
+  the program nests them, FITPACK's trip counters add up to `loop_syncs`,
+  and a trackdrive frame opens the sorter's and the matcher's span once and
+  counts one launch of B2 (`sorting.b2.launches`; the scan counts none).
 * A function under ``spanned`` keeps its name and its result, and records
   its calls only while recording.
 * Under `torch.profiler` the spans are ranges of the trace, each named
@@ -23,7 +24,7 @@ import torch
 
 from ft_fsd_path_planning_torch import PathPlanner
 from ft_fsd_path_planning_torch.config import default_config
-from ft_fsd_path_planning_torch.models import facade, pathing, planner, relocalization, sorting
+from ft_fsd_path_planning_torch.models import facade, matching, pathing, planner, relocalization, sorting
 from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
 from ft_fsd_path_planning_torch.ops import beam_search as bs
 from ft_fsd_path_planning_torch.ops import fitpack, spline
@@ -39,9 +40,11 @@ FITPACK = ("stage.fitpack.fit", "stage.fitpack.part1", "stage.fitpack.insert", "
 #: the spans each mission's frames open, and its counters
 SPANS = {
     "skidpad": FACADE + ("stage.facade.refine_f64", "stage.reloc.attempt", "stage.pathing.run") + FITPACK,
-    "trackdrive": FACADE + ("stage.pathing.run",) + FITPACK,
+    "trackdrive": FACADE + ("stage.sorting.run", "stage.matching.run", "stage.pathing.run") + FITPACK,
 }
 TRIPS = {f"fitpack.trips.{loop}" for loop in ("part1", "insert", "part2", "root_rati")}
+#: each mission's counters (the recorded frames run B2's plain version)
+COUNTERS = {"skidpad": TRIPS, "trackdrive": TRIPS | {"sorting.b2.launches"}}
 MISSIONS = sorted(SPANS)
 #: (mission, inner, outer): the inner span's time lies inside the outer one's
 NESTED = [
@@ -56,6 +59,9 @@ NESTED = [
         ("stage.fitpack.part1", "stage.fitpack.fit"),
         ("stage.fitpack.root_rati", "stage.fitpack.part2"),
     ]
+] + [
+    ("trackdrive", "stage.sorting.run", "stage.facade.step"),
+    ("trackdrive", "stage.matching.run", "stage.facade.step"),
 ]
 
 
@@ -111,7 +117,7 @@ def test_every_span_of_the_mission_is_recorded(recorded):
     mission, table, _, n_frames = recorded
     spans = {k for k, v in table.items() if isinstance(v, dict)}
     assert spans == set(SPANS[mission])
-    assert set(table) - spans == TRIPS
+    assert set(table) - spans == COUNTERS[mission]
     assert table["stage.facade.call"]["n"] == n_frames
     assert all(k.startswith("stage.") for k in spans)
     assert all(table[k]["ns"] > 0 for k in spans)
@@ -143,6 +149,8 @@ SPANNED = [
     (facade.PathPlanner._refine_reloc_f64, "stage.facade.refine_f64"),
     (fitpack.fitpack_fit, "stage.fitpack.fit"),
     (fitpack._root_rati, "stage.fitpack.root_rati"),
+    (sorting.run_cone_sorting, "stage.sorting.run"),
+    (matching.run_cone_matching, "stage.matching.run"),
 ]
 
 
@@ -275,9 +283,44 @@ def test_sorter_reaches_the_fused_search_through_its_module(monkeypatch):
     assert path.shape == (40, 4) and np.all(np.isfinite(path))
     assert search.n == 1
     assert sorting.bs is bs
-    # the sorter and the matcher are named in a trace by the benchmark's own
-    # stage markers; the program adds no span of its own there
-    assert not any(k.startswith(("stage.sorting", "stage.matching")) for k in table)
+    # the program's own spans of the two stages, and the launch counted
+    assert table["stage.sorting.run"]["n"] == table["stage.matching.run"]["n"] == 1
+    assert table["sorting.b2.launches"] == 1
+
+
+@pytest.mark.parametrize("recorded", ["trackdrive"], indirect=True)
+def test_sorting_and_matching_spans_open_once_a_trackdrive_frame(recorded):
+    _, table, _, n_frames = recorded
+    assert table["stage.sorting.run"]["n"] == table["stage.matching.run"]["n"] == n_frames
+    assert table["sorting.b2.launches"] == n_frames  # one launch searches both sides
+
+
+def test_trackdrive_records_nothing_outside_recording():
+    _, cfg, frames = _frames("trackdrive")
+    p = PathPlanner(MissionTypes.trackdrive, config=cfg, device="cpu")
+    timer.reset()
+    p.calculate_path_in_global_frame(*frames[0])
+    assert timer.table() == {}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["B2", "the scan"])
+def test_b2_launches_are_counted_on_the_fused_path_only(fused, monkeypatch):
+    """`sorting.b2.launches` counts the calls of B2 (its plain version on the
+    CPU), one a sorter call; the scan counts nothing."""
+    monkeypatch.setattr(sorting, "_use_fused_beam", lambda device, cfg: fused)
+    search = _Calls(bs.fused_beam_search)
+    monkeypatch.setattr(bs, "fused_beam_search", search)
+    _, cfg, frames = _frames("trackdrive")
+    p = PathPlanner(MissionTypes.trackdrive, config=cfg, device="cpu")
+    timer.reset()
+    with timer.recording():
+        for frame in frames:
+            p.calculate_path_in_global_frame(*frame)
+    table = timer.table()
+    timer.reset()
+    assert table["stage.sorting.run"]["n"] == len(frames)
+    assert search.n == (len(frames) if fused else 0)
+    assert table.get("sorting.b2.launches", 0) == search.n
 
 
 def test_off_path_records_nothing_and_allocates_no_span():

@@ -6,12 +6,12 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds the hand-written kernels from ``csrc/`` (B1,
 the banded Cholesky solve with its bare and its fused, refined entry, B2,
-the fused beam search of the cone sorter, and FITPACK's part 2, one launch
-a fit), holds each against its plain PyTorch version on the card at the
-shapes the main path gives it (part 2 on every fit of a skidpad run, a
-trackdrive lap and the acceleration session, with its hairpin and its fits
-of 1,024 sites, and of a trackdrive and an acceleration batched step at
-B = 256, through ``tests/part2_check.py``), and
+the fused beam search of the cone sorter, and FITPACK's parts 1 and 2, one
+launch a fit), holds each against its plain PyTorch version on the card at
+the shapes the main path gives it (every fit of a skidpad run, a trackdrive
+lap and the acceleration session, with its hairpin and its fits of 1,024
+sites, of a trackdrive and an acceleration batched step at B = 256 and of
+the initial path, through ``tests/part2_check.py``), and
 drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
 of bare solves it replaces; with B2 and with the sorter's scan), then the
@@ -115,9 +115,10 @@ SERVE_KERNEL_KNOBS = ({"beam_width": 8}, {"beam_width": 64}, {"max_length": 8}, 
 SERVE_SCAN_KNOB = {"beam_width": 10}
 START = time.perf_counter()
 BROKEN_FACTORIZATION_FRAMES = (20, 22)  # acceleration session frames whose hairpin fit breaks a float32 factorization down
-# (B, M) at which the part-2 kernel is timed; 1,024 sites (acceleration's dense
-# samples) take over 48 KB of shared memory
-PART2_TIMED = ((1, 256), (1, 512), (1, 1024), (256, 512))
+# (B, M) at which the fit kernel is timed: skidpad's two fits, acceleration's
+# fit of its input points and of its dense samples (over 48 KB of shared
+# memory) and a sweep
+FIT_TIMED = ((1, 256), (1, 512), (1, 704), (1, 1024), (256, 512))
 BATCH_ROT_32_64_TOL = 1e-3  # the float32 step's rotation vs the same attempt in float64 on the same lane, rad
 
 
@@ -761,44 +762,51 @@ def phase_b2_shapes(cfg, dev) -> list[dict]:
     return rows
 
 
-def part2_work(args, trips: torch.Tensor) -> tuple[int, int]:
-    """(bytes, flop) the part-2 kernel needs on these inputs: every input
-    read once and the coefficients and trips written once; a flop count of
-    the basis and the normal equations (~72 a live site) and, a trip, the
-    band's assembly, B1's refined solve and fp (~22 a live site)."""
+def fit_work(args, trips: torch.Tensor) -> tuple[int, int]:
+    """(bytes, flop) the fit kernel needs on these inputs (``fitpack_parts12``'s
+    arguments and the kernel's trips a lane): every input read once and the
+    knots, coefficients and trips written once; a flop count, a part-1 trip,
+    of the basis, the normal equations, two of B1's refined solves, the
+    residuals and the statistics (~100 a live site) and, a part-2 trip, of
+    the band's assembly, B1's refined solve and fp (~22 a live site)."""
     from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
     from ft_fsd_path_planning_torch.ops import fitpack
 
     b, m = args[2].shape
     nc = fitpack.NC
-    nbytes = b * (13 * m + 4 * (fitpack.MAX_INT + 5 + 2 * nc) + 4 * (2 * nc + 1))
+    nbytes = b * (17 * m + 4 * (1 + 2 * nc + 1)) + b * (4 * (fitpack.MAX_INT + 1 + 2 * nc + 2) + 1)
     live = args[2].sum(dim=1)
-    flops = 72 * int(live.sum()) + int((trips * (bc.refined_solve_flops(nc, 2) + 2 * 9 * nc + 22 * live)).sum())
-    return nbytes, flops
+    solve = bc.refined_solve_flops(nc, 2)
+    part1 = trips[:, 0] * (2 * solve + 2 * 9 * nc + 100 * live)
+    part2 = trips[:, 1] * (solve + 2 * 9 * nc + 22 * live)
+    return nbytes, int((part1 + part2).sum())
 
 
-def phase_fitpack_part2(dev) -> dict:
-    """The part-2 kernel against its plain version on every part 2 of a
-    skidpad run, of a trackdrive lap and of the acceleration session
-    through PathPlanner (the last with its hairpin, where a float32
-    factorisation breaks down and the p-iteration retries, and with fits of
-    1,024 sites, over 48 KB of shared memory), of a trackdrive batched step
-    and of an acceleration mission batched step at B = 256:
-    ``tests/part2_check.py`` holds every lane (gated lanes bit for bit,
-    lanes with the same trips within its limit, lanes whose trips differ
-    reported with |f2| against acc), with one launch a fit, B1 still
-    launched by part 1 and the masked loop's counters silent; and a set of
-    256 lanes whose knots close in on each other, built from an
-    acceleration fit (``part2_check.clustered_knots``), on which the small-p
-    trials break down, and the lanes of that set whose plain trial breaks
-    down; and the trackdrive witness, whose branch-2 step falls back inside
-    its bracket and converges. At least one lane must retry with the same
-    trips on both sides, the witness must converge, and one call must have
-    1,024 sites. Then the
-    kernel's time from a CUDA graph and launched one by one at PART2_TIMED,
-    against the plain version's."""
+def phase_fitpack(dev) -> dict:
+    """The fit kernel against its plain version on every fit of a skidpad
+    run, of a trackdrive lap and of the acceleration session through
+    PathPlanner (the last with its hairpin, where a float32 factorisation
+    breaks down and the p-iteration retries, and with fits of 1,024 sites,
+    over 48 KB of shared memory), of a trackdrive batched step and of an
+    acceleration mission batched step at B = 256, and of the planner's
+    initial path: ``tests/part2_check.py::compare_fits`` holds every lane
+    (the same knots and budget_hit, both sides converged or both stopped,
+    coefficients within its limit where the part-2 trips agree, lanes whose
+    knots part ways excused only on a near-tie of the decision where they
+    part), with one launch a fit, B1 launched for iteration 0 alone (two
+    solves a fit) and the masked loops' counters silent. A drive's lanes
+    whose part-2 trips differ stay below DIFFER_SHARE of it, and one fit
+    must have 1,024 sites. Then BATCH noisy copies of the acceleration
+    hairpin's fit (``part2_check.hairpin_copies``), on which part 2's
+    small-p trials break down: one copy at least must retry a non-finite
+    trial with the same trips on both sides (the kernel's step after a
+    breakdown). The trackdrive witness, whose branch-2 step falls
+    back inside its bracket, must converge. Then the kernel's time from a
+    CUDA graph and launched one by one at FIT_TIMED, against the plain
+    version's."""
     from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
     from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.models import pathing
     from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
     from ft_fsd_path_planning_torch.ops import fitpack
     from ft_fsd_path_planning_torch.parallel import batch, scenarios
@@ -826,89 +834,104 @@ def phase_fitpack_part2(dev) -> dict:
             lambda: [acceleration.calculate_path_in_global_frame(*f) for f in accel_session],
         f"a trackdrive batched_step B={BATCH}": lambda: batch.batched_step(cfg, state, frames),
         f"an acceleration mission batched_step B={BATCH}": lambda: batch.batched_step(accel_cfg, accel_state, accel_frames),
+        "the initial path (384 sites, densified to 768 samples)": lambda: pathing.initial_path_state(cfg, 1, dev),
     }
-    calls_by_drive = {}
+    fits_by_drive = {}
     for label, run in drives.items():
         bc.reset_launch_count()
         launches0 = fitpack.part2_launch_count
         timer.reset()
         with timer.recording():
-            calls = part2_check.capture(run)
+            calls = part2_check.capture_fits(run)
         table = timer.table()
         timer.reset()
         fits, launched = table["stage.fitpack.fit"]["n"], fitpack.part2_launch_count - launches0
         log(
-            f"part 2 on {label}: fits {fits}, part-2 launches {launched} (counter {table.get('fitpack.part2.launches')}), "
+            f"fits of {label}: {fits}, fit-kernel launches {launched} (counter {table.get('fitpack.part2.launches')}), "
             f"B1 launches {bc.launch_count}, FITPACK trips by loop {({k: v for k, v in table.items() if k.startswith('fitpack.trips.')})}"
         )
-        check(launched == fits == len(calls) == table.get("fitpack.part2.launches"), f"{label}: not one part-2 launch a fit")
-        check(bc.launch_count > 0, f"{label}: part 1 launched B1 no time")
-        check("fitpack.trips.part2" not in table and "fitpack.trips.root_rati" not in table, f"{label}: part 2's masked loop ran on the card")
-        calls_by_drive[label] = calls
+        check(launched == fits == len(calls) == table.get("fitpack.part2.launches"), f"{label}: not one fit-kernel launch a fit")
+        check(bc.launch_count == 2 * fits, f"{label}: B1 launched {bc.launch_count} times for {fits} fits: not iteration 0's two solves a fit")
+        check(not any(k.startswith("fitpack.trips.") for k in table), f"{label}: a masked FITPACK loop ran on the card")
+        fits_by_drive[label] = calls
 
-    source = next(a for a in calls_by_drive[accel_label] if int(a[4][0]) >= 2)
-    clustered = f"a {source[2].shape[1]}-site acceleration fit, its middle knot moved towards its neighbour, B={BATCH}"
-    calls_by_drive[clustered] = [part2_check.clustered_knots(source, BATCH)]
-    broken = part2_check.broken_trials(source, BATCH)
-    calls_by_drive[f"the {broken[2].shape[0]} lanes of that set whose plain trial breaks down"] = [broken]
-    witness = part2_check.witness(dev)
-    calls_by_drive["the trackdrive witness (seed 3100000006, frame 22: 12 of 64 sites, s = 0.2)"] = [witness]
-    total, trips_seen = part2_check.Part2Comparison(), {}
-    for label, calls in calls_by_drive.items():
-        found = part2_check.Part2Comparison()
+    total, trips_seen = part2_check.FitComparison(), {}
+    for label, calls in fits_by_drive.items():
+        found = part2_check.FitComparison()
         for args in calls:
-            part2_check.compare(args, found, label)
-            trips_seen.setdefault(tuple(args[2].shape), []).append(fitpack.fitpack_part2_cuda(*args)[1].cpu())
+            part2_check.compare_fits(args, found, label)
+            trips_seen.setdefault(tuple(args[2].shape), []).append(fitpack.fitpack_parts12_cuda(*args)[4].cpu())
         shapes = dict(Counter(tuple(a[2].shape) for a in calls))
-        log(f"part 2 kernel vs plain on {label}, (B, M) {shapes}: {found.summary()}")
-        for line in found.differ + found.faults:
+        log(f"fit kernel vs plain on {label}, (B, M) {shapes}: {found.summary()}")
+        for line in found.near_ties + found.differ + found.faults:
             log(f"  {line}")
+        check(found.differ_share() <= part2_check.DIFFER_SHARE,
+              f"{label}: the part-2 trips of {len(found.differ)} of {found.lanes} lanes differ from the plain version's")
         for field in dataclasses.fields(total):
             a, b = getattr(total, field.name), getattr(found, field.name)
-            setattr(total, field.name, max(a, b) if field.name.startswith("worst") else a + b)
-    check(not total.faults, f"the part-2 kernel disagrees with its plain version: {total.faults[:5]}")
-    check(total.retried_same_trips > 0, "no lane retried a non-finite trial with the same trips on both sides: the kernel's too_small_p after a breakdown was not compared")
-    w_coef, _ = fitpack.fitpack_part2_cuda(*witness)
-    w_f = abs(float(part2_check.lane_fp(witness, w_coef)[0]) - witness[9])
-    log(f"part 2 kernel on the trackdrive witness: |fp - s| {w_f!r} against acc {witness[10]!r}")
-    check(w_f < witness[10], "the part-2 kernel does not converge on the trackdrive witness")
-    check(any(shape[1] == 1024 for shape in trips_seen), "no part 2 of 1,024 sites: the kernel's path above 48 KB of shared memory was not compared")
+            if field.name.startswith("worst"):
+                setattr(total, field.name, max(a, b))
+            elif field.name.startswith("trips"):
+                setattr(total, field.name, tuple(x + y for x, y in zip(a, b)))
+            else:
+                setattr(total, field.name, a + b)
+    hairpin = [a for a in fits_by_drive[accel_label] if a[2].shape[1] == 704][part2_check.HAIRPIN_FRAME]
+    copies = part2_check.compare_fits(part2_check.hairpin_copies(hairpin, BATCH), None, "hairpin copies")
+    log(f"fit kernel vs plain on {BATCH} noisy copies of the acceleration hairpin's fit (frame "
+        f"{part2_check.HAIRPIN_FRAME}, 704 sites): {copies.summary()}")
+    for line in copies.near_ties + copies.differ + copies.faults:
+        log(f"  {line}")
+    total.faults += copies.faults
+    check(copies.retried_same_trips > 0, "no hairpin copy retried a non-finite trial with the same trips on both "
+          "sides: the kernel's step after a breakdown was not compared")
+    check(not total.faults, f"the fit kernel disagrees with its plain version: {total.faults[:5]}")
+    check(any(shape[1] == 1024 for shape in trips_seen), "no fit of 1,024 sites: the kernel's path above 48 KB of shared memory was not compared")
     for shape, trips in sorted(trips_seen.items()):
         t = torch.cat(trips)
-        ran = t[t > 0].float()
-        log(f"part 2 at (B, M) {shape}: lanes {t.numel()}, gated {int((t == 0).sum())}, trips a running lane mean "
-            f"{float(ran.mean()) if ran.numel() else 0.0!r} max {int(t.max())}, trips a launch mean {float(t.view(-1, shape[0]).max(dim=1).values.float().mean())!r}")
+        log(f"fits at (B, M) {shape}: lanes {t.shape[0]}, part-1 solves a lane mean {float(t[:, 0].float().mean())!r} "
+            f"max {int(t[:, 0].max())}, part-2 trips a lane mean {float(t[:, 1].float().mean())!r} max {int(t[:, 1].max())}")
 
-    all_calls = [a for calls in calls_by_drive.values() for a in calls]
+    points, mask = part2_check.witness_fit_inputs(dev)
+    w_fit = fitpack.fitpack_fit(points, mask, part2_check.WITNESS_S)
+    w_acc = fitpack.TOL * part2_check.WITNESS_S
+    w_f = abs(float(part2_check.fit_fp(w_fit, points, mask)[0]) - part2_check.WITNESS_S)
+    log(f"fit kernel on the trackdrive witness (seed 3100000006, frame 22: 12 of 64 sites, s = 0.2): |fp - s| {w_f!r} "
+        f"against acc {w_acc!r}")
+    check(w_f < w_acc, "the fit kernel does not converge on the trackdrive witness")
+
+    all_calls = [a for calls in fits_by_drive.values() for a in calls]
     rows = []
-    for b, m in PART2_TIMED:
+    for b, m in FIT_TIMED:
         args = next(
-            (a for a in all_calls if tuple(a[2].shape) == (b, m) and int(fitpack.fitpack_part2_cuda(*a)[1].max()) > 0),
+            (a for a in all_calls if tuple(a[2].shape) == (b, m) and int(fitpack.fitpack_parts12_cuda(*a)[4][:, 0].max()) > 0),
             None,
         )
         if args is None:
-            log(f"part 2 kernel at (B, M) {(b, m)}: no captured call makes a trip, not timed")
+            log(f"fit kernel at (B, M) {(b, m)}: no captured fit makes a part-1 trip, not timed")
             continue
-        _, trips = fitpack.fitpack_part2_cuda(*args)
-        kernel = lambda: fitpack.fitpack_part2_cuda(*args)  # noqa: E731
+        trips = fitpack.fitpack_parts12_cuda(*args)[4]
+        kernel = lambda: fitpack.fitpack_parts12_cuda(*args)  # noqa: E731
         ms, one_by_one = graph_ms(kernel, 50), cuda_ms(kernel, 50)
-        plain_ms = cuda_ms(lambda: fitpack.fitpack_part2_plain(*args), 5)
-        nbytes, flops = part2_work(args, trips)
+        plain_ms = cuda_ms(lambda: fitpack.fitpack_parts12_plain(*args), 5)
+        nbytes, flops = fit_work(args, trips)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
         log(
-            f"part 2 kernel at (B, M) {(b, m)}, trips a lane {trips.tolist() if b == 1 else float(trips.float().mean())}: "
-            f"graph {ms!r} ms, one by one {one_by_one!r} ms, plain version {plain_ms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms "
+            f"fit kernel at (B, M) {(b, m)}, trips (part 1, part 2) a lane "
+            f"{trips.tolist() if b == 1 else trips.float().mean(dim=0).tolist()}: graph {ms!r} ms, one by one "
+            f"{one_by_one!r} ms, plain version (masked loops) {plain_ms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms "
             f"({nbytes} B, {flops} flop)"
         )
         rows.append({"b": b, "m": m, "ms": ms, "one_by_one_ms": one_by_one, "plain_ms": plain_ms,
                      "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
     return {
-        "name": "fitpack_part2",
+        "name": "fitpack_fit",
         "route": "cuda",
         "source": "ft_fsd_path_planning_torch/csrc/fitpack_part2.cu",
-        "replaces": "none: the masked part-2 loop of ops/fitpack.py (JAX ops/fitpack.py::_root_rati)",
+        "replaces": "none: the masked part-1 and part-2 loops of ops/fitpack.py (JAX ops/fitpack.py::fitpack_fit, _root_rati)",
         "max_rel_err": total.worst_converged,
         "max_rel_err_stopped": total.worst_stopped,
+        "max_rel_err_lsq": total.worst_lsq,
+        "lanes_near_tie": len(total.near_ties),
         "timed": "CUDA graph replay of 50 launches; one_by_one_ms and plain_ms launched one by one",
         "shapes": rows,
     }
@@ -1853,7 +1876,7 @@ def main() -> int:
     timed(phase_b1_vs_plain_missions, dev)
     b2 = phase_b2_vs_plain(cfg, replay_cfg, dev)
     b2_shapes = timed(phase_b2_shapes, cfg, dev)
-    part2 = timed(phase_fitpack_part2, dev)
+    fit_kernel = timed(phase_fitpack, dev)
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
@@ -1910,7 +1933,7 @@ def main() -> int:
         check(row["launches"] > 0, f"{row['name']} was launched no time by the plan server's knob requests")
     b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
-    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [part2]}))
+    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [fit_kernel]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

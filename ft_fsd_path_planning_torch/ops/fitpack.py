@@ -6,18 +6,20 @@ spline's SSR drops to the smoothing budget ``s``; part 2 finds FITPACK's
 Lagrange parameter ``p`` with the rational root iteration. Every function
 here takes a leading batch axis of independent traces.
 
-The three JAX ``lax.while_loop``s (part-1 outer iterations, knot insertions,
-part-2 p-iteration) become Python loops over an ``active`` mask: each trip
-computes every lane and keeps the new carry only on lanes whose own
-condition holds, which is what the vmapped while loop does, and the loop
-ends when no lane is active (one host sync per trip). Every SPD solve goes
-through ``ops/spline.py::_solve_spd_banded`` (kernel B1).
+:func:`fitpack_fit` solves part 1's iteration 0, the least-squares
+polynomial on the empty knot set, eagerly (kernel B1 through
+``ops/spline.py::_solve_spd_banded``) and hands the rest to
+:func:`fitpack_parts12`: on a CPU tensor its plain version
+:func:`fitpack_parts12_plain`, on a CUDA tensor one launch of the
+hand-written kernel `csrc/fitpack_part2.cu`, in which every lane runs the
+knot insertions, part 1's least-squares solves, part 2 and the tiny-input
+closed form to its own end on the card, with no host sync.
 
-Part 2 is :func:`fitpack_part2`: on a CPU tensor its plain version
-:func:`fitpack_part2_plain`, the masked loop above; on a CUDA tensor one
-launch of the hand-written kernel `csrc/fitpack_part2.cu`, in which every
-lane runs the gate, the normal equations, the initial p, the penalty and
-the whole p-iteration to its own end on the card, with no host sync.
+In the plain version the three JAX ``lax.while_loop``s (part-1 outer
+iterations, knot insertions, part-2 p-iteration) become Python loops over an
+``active`` mask: each trip computes every lane and keeps the new carry only
+on lanes whose own condition holds, which is what the vmapped while loop
+does, and the loop ends when no lane is active (one host sync per trip).
 """
 
 from __future__ import annotations
@@ -53,9 +55,11 @@ _EPS_DIAG = 1e-6
 #: host syncs spent on loop conditions since the last reset (one per trip
 #: check of each masked loop)
 loop_syncs = 0
-#: launches of the part-2 kernel since the last reset (plain calls do not count)
+#: launches of the fit kernel since the last reset, as the counter
+#: ``fitpack.part2.launches`` counts them: each runs part 2 of its fits (plain
+#: calls do not count)
 part2_launch_count = 0
-#: the most sites a fit may have for the part-2 kernel (``kMaxSites``)
+#: the most sites a fit may have for the kernel (``kMaxSites``)
 PART2_MAX_SITES = 4096
 
 
@@ -504,66 +508,15 @@ def fitpack_part2_plain(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq
     return _sel(skip, c_lsq, c_p2), trips
 
 
-def fitpack_part2_cuda(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc):
-    """Launch the part-2 kernel on the current stream (no synchronisation):
-    one warp a lane, every lane to its own end. The same arguments and
-    results as :func:`fitpack_part2_plain`; raises on what the kernel does
-    not take."""
-    global part2_launch_count
-    bsz, m = mask.shape
-    f32 = (u, points, t_int, u_max, c_lsq, fp0, fp_lsq)
-    if any(a.device != u.device for a in f32 + (mask, n_int)) or u.device.type != "cuda":
-        raise ValueError("fitpack_part2_cuda takes CUDA tensors on one device")
-    if any(a.dtype != torch.float32 for a in f32) or mask.dtype != torch.bool or n_int.dtype != torch.int32:
-        raise TypeError("fitpack_part2_cuda takes float32 data, a bool mask and int32 knot counts")
-    shapes = {
-        "u": (u, (bsz, m)), "points": (points, (bsz, m, 2)), "t_int": (t_int, (bsz, MAX_INT)),
-        "n_int": (n_int, (bsz,)), "u_max": (u_max, (bsz,)), "c_lsq": (c_lsq, (bsz, NC, 2)),
-        "fp0": (fp0, (bsz,)), "fp_lsq": (fp_lsq, (bsz,)),
-    }
-    for name, (a, want) in shapes.items():
-        if tuple(a.shape) != want:
-            raise ValueError(f"fitpack_part2_cuda: {name} is {tuple(a.shape)}, expected {want}")
-    if not 1 <= m <= PART2_MAX_SITES:
-        raise ValueError(f"the part-2 kernel takes 1 to {PART2_MAX_SITES} sites, got {m}")
-    coef = torch.empty((bsz, NC, 2), dtype=torch.float32, device=u.device)
-    trips = torch.empty((bsz,), dtype=torch.int32, device=u.device)
-    if bsz == 0:
-        return coef, trips
-    args = [a.contiguous() for a in (u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq)]
-    lib = _part2_library()
-    with torch.cuda.device(u.device):
-        err = lib.fitpack_part2_f32(
-            *(a.data_ptr() for a in args), s, acc, bsz, m, coef.data_ptr(), trips.data_ptr(),
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fitpack_part2 kernel launch failed: CUDA error {err}")
-    part2_launch_count += 1
-    timer.count("fitpack.part2.launches")
-    return coef, trips
-
-
 @functools.lru_cache(maxsize=None)
-def _part2_library() -> ctypes.CDLL:
-    """The part-2 kernel's library with its C interface declared, built and bound once."""
+def _fit_library() -> ctypes.CDLL:
+    """The library of csrc/fitpack_part2.cu with its C entry declared, built
+    and bound once."""
     lib = kernel_build.load("fitpack_part2")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fitpack_part2_f32.argtypes = [ptr] * 9 + [f32, f32, i32, i32, ptr, ptr, ptr]
-    lib.fitpack_part2_f32.restype = ctypes.c_int
+    lib.fitpack_fit_f32.argtypes = [ptr] * 7 + [f32, f32, i32, i32] + [ptr] * 6
+    lib.fitpack_fit_f32.restype = ctypes.c_int
     return lib
-
-
-def fitpack_part2(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc):
-    """FITPACK's part 2 (the smoothing spline's p on the final knots) for
-    the fit's chord parameters u (B, M), points (B, M, 2), mask (B, M), the
-    final knots t_int (B, MAX_INT), n_int (B,), u_max (B,), the LSQ spline
-    c_lsq (B, NC, 2) with its SSR fp_lsq and the polynomial's fp0 (B,).
-    Returns (coefficients, trips a lane). CPU tensors take the plain
-    version, CUDA tensors the kernel."""
-    if u.device.type == "cpu":
-        return fitpack_part2_plain(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
-    return fitpack_part2_cuda(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -639,15 +592,19 @@ def _tiny_fit(u: Tensor, points: Tensor, mask: Tensor, u_max: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-@timer.spanned("stage.fitpack.fit")
-def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
-    """Fit the FITPACK smoothing spline through masked traces points
-    (B, M, 2), mask (B, M); ``smoothing`` is FITPACK's ``s``."""
+def fitpack_parts12_plain(u, points, mask, u_max, c0, fp0, resid0, s, acc):
+    """FITPACK's parts 1 and 2 after iteration 0, the kernel's plain version.
+
+    From the chord parameters u (B, M), points (B, M, 2), mask (B, M), u_max
+    (B,) and iteration 0 of part 1, the least-squares polynomial on the empty
+    knot set (coefficients c0 (B, NC, 2), SSR fp0 (B,), squared residual a
+    site resid0 (B, M)): the first knot insertion, part 1's masked loop of
+    least-squares solves and knot insertions (one host sync a trip of each),
+    part 2 (:func:`fitpack_part2_plain`) and the tiny-input closed form. Returns
+    (t_int, n_int, coef, budget_hit, trips (B, 2) int32: a lane's part-1
+    solves after iteration 0 and its part-2 trips, 0 and 0 on a tiny lane)."""
     dtype, dev = points.dtype, points.device
     bsz, m = mask.shape
-    s = float(np.float32(smoothing))
-    acc = float(np.float32(TOL) * np.float32(smoothing))
-    u, u_max, ok = chord_lengths(points, mask)
     n_valid = torch.sum(mask, dim=1)
 
     last_idx = torch.clamp(n_valid - 1, min=0)
@@ -657,9 +614,6 @@ def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
     t_i0 = torch.full((bsz, MAX_INT), _BIG, dtype=dtype, device=dev)
     n_i0 = torch.zeros(bsz, dtype=torch.int32, device=dev)
 
-    # part-1 iteration 0: the LSQ polynomial on the empty knot set
-    b0 = _design(u, mask, _full_knots(t_i0, n_i0, u_max), n_i0)
-    c0, fp0, resid0 = _lsq_solve(b0, points, mask, n_i0)
     done0 = (torch.abs(fp0 - s) < acc) | (fp0 - s < 0)
     fpint0, nrdata0 = _interval_stats(u, mask, resid0, t_i0, n_i0, endpoint_mask)
     # first insertion round: nplus = 1 when n_int == 0 (fpcurf.f:158)
@@ -671,12 +625,14 @@ def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
     nplus_prev = torch.ones(bsz, dtype=torch.int32, device=dev)
     done = done0
     budget_hit = torch.zeros_like(done0)
+    trips1 = torch.zeros_like(n_i0)
     it = 1
     with timer.span("stage.fitpack.part1"):
         while it <= OUTER:
             active = ~done
             if not _any(active, "fitpack.trips.part1"):
                 break
+            trips1 = trips1 + active.to(trips1.dtype)
             # knots for this round were inserted by the previous trip; solve on them
             b = _design(u, mask, _full_knots(t_int, n_int, u_max), n_int)
             c, fp, resid = _lsq_solve(b, points, mask, n_int)
@@ -722,18 +678,88 @@ def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
             it += 1
 
     with timer.span("stage.fitpack.part2"):
-        coef, _ = fitpack_part2(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
+        coef, trips2 = fitpack_part2_plain(u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc)
 
     # tiny inputs: interpolating polynomial (degree n-1) — also the m=4 cubic
     tiny = n_valid <= 4
     coef = _sel(tiny, _tiny_fit(u, points, mask, u_max), coef)
     t_int = _sel(tiny, torch.full_like(t_int, _BIG), t_int)
     n_int = torch.where(tiny, torch.zeros_like(n_int), n_int)
+    trips = torch.where(tiny[:, None], 0, torch.stack([trips1, trips2], dim=1))
+    return t_int, n_int, coef, budget_hit & ~tiny, trips
 
-    return FpSpline(
-        t_int=t_int, n_int=n_int, coef=coef, u_max=u_max, ok=ok,
-        budget_hit=budget_hit & ~tiny,
-    )
+
+def fitpack_parts12_cuda(u, points, mask, u_max, c0, fp0, resid0, s, acc):
+    """Launch the fit kernel on the current stream (no synchronisation): one
+    warp a lane, every lane through parts 1 and 2 to its own end. The same
+    arguments and results as :func:`fitpack_parts12_plain`; raises on what
+    the kernel does not take. The launch still runs part 2 of every fit, so
+    it counts as a part-2 launch."""
+    global part2_launch_count
+    bsz, m = mask.shape
+    f32 = (u, points, u_max, c0, fp0, resid0)
+    if any(a.device != u.device for a in f32 + (mask,)) or u.device.type != "cuda":
+        raise ValueError("fitpack_parts12_cuda takes CUDA tensors on one device")
+    if any(a.dtype != torch.float32 for a in f32) or mask.dtype != torch.bool:
+        raise TypeError("fitpack_parts12_cuda takes float32 data and a bool mask")
+    shapes = {
+        "u": (u, (bsz, m)), "points": (points, (bsz, m, 2)), "u_max": (u_max, (bsz,)),
+        "c0": (c0, (bsz, NC, 2)), "fp0": (fp0, (bsz,)), "resid0": (resid0, (bsz, m)),
+    }
+    for name, (a, want) in shapes.items():
+        if tuple(a.shape) != want:
+            raise ValueError(f"fitpack_parts12_cuda: {name} is {tuple(a.shape)}, expected {want}")
+    if not 1 <= m <= PART2_MAX_SITES:
+        raise ValueError(f"the fit kernel takes 1 to {PART2_MAX_SITES} sites, got {m}")
+    dev = u.device
+    t_int = torch.empty((bsz, MAX_INT), dtype=torch.float32, device=dev)
+    n_int = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    coef = torch.empty((bsz, NC, 2), dtype=torch.float32, device=dev)
+    budget_hit = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    trips = torch.empty((bsz, 2), dtype=torch.int32, device=dev)
+    if bsz == 0:
+        return t_int, n_int, coef, budget_hit, trips
+    args = [a.contiguous() for a in (u, points, mask, u_max, c0, fp0, resid0)]
+    lib = _fit_library()
+    with torch.cuda.device(dev):
+        err = lib.fitpack_fit_f32(
+            *(a.data_ptr() for a in args), s, acc, bsz, m,
+            *(a.data_ptr() for a in (t_int, n_int, coef, budget_hit, trips)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fitpack_fit kernel launch failed: CUDA error {err}")
+    part2_launch_count += 1
+    timer.count("fitpack.part2.launches")
+    return t_int, n_int, coef, budget_hit, trips
+
+
+def fitpack_parts12(u, points, mask, u_max, c0, fp0, resid0, s, acc):
+    """FITPACK's parts 1 and 2 after iteration 0 (arguments and results as
+    :func:`fitpack_parts12_plain`). CPU tensors take the plain version,
+    CUDA tensors the kernel."""
+    if u.device.type == "cpu":
+        return fitpack_parts12_plain(u, points, mask, u_max, c0, fp0, resid0, s, acc)
+    return fitpack_parts12_cuda(u, points, mask, u_max, c0, fp0, resid0, s, acc)
+
+
+@timer.spanned("stage.fitpack.fit")
+def fitpack_fit(points: Tensor, mask: Tensor, smoothing: float) -> FpSpline:
+    """Fit the FITPACK smoothing spline through masked traces points
+    (B, M, 2), mask (B, M); ``smoothing`` is FITPACK's ``s``."""
+    bsz = mask.shape[0]
+    s = float(np.float32(smoothing))
+    acc = float(np.float32(TOL) * np.float32(smoothing))
+    u, u_max, ok = chord_lengths(points, mask)
+
+    # part-1 iteration 0: the LSQ polynomial on the empty knot set
+    t_i0 = torch.full((bsz, MAX_INT), _BIG, dtype=points.dtype, device=points.device)
+    n_i0 = torch.zeros(bsz, dtype=torch.int32, device=points.device)
+    b0 = _design(u, mask, _full_knots(t_i0, n_i0, u_max), n_i0)
+    c0, fp0, resid0 = _lsq_solve(b0, points, mask, n_i0)
+
+    t_int, n_int, coef, budget_hit, _ = fitpack_parts12(u, points, mask, u_max, c0, fp0, resid0, s, acc)
+    return FpSpline(t_int=t_int, n_int=n_int, coef=coef, u_max=u_max, ok=ok, budget_hit=budget_hit)
 
 
 def fitpack_eval(fit: FpSpline, u: Tensor) -> Tensor:

@@ -133,7 +133,7 @@ def _kernel_wrappers():
         (spline, "banded_refined_solve_cuda"),
         (banded_cholesky, "banded_cholesky_solve_cuda"),
         (beam_search, "fused_beam_search_cuda"),
-        (fitpack, "fitpack_part2_cuda"),
+        (fitpack, "fitpack_parts12_cuda"),
     ]
 
 
@@ -238,8 +238,8 @@ def attribute_kernels(run, device: torch.device) -> dict:
 
 
 def _hand_written(kernel_name: str) -> bool:
-    """Whether a device kernel is one of csrc/'s: B1, B2 or FITPACK's part 2."""
-    return any(k in kernel_name for k in ("banded_cholesky_kernel", "beam_search_kernel", "fitpack_part2_kernel"))
+    """Whether a device kernel is one of csrc/'s: B1, B2 or FITPACK's fit kernel."""
+    return any(k in kernel_name for k in ("banded_cholesky_kernel", "beam_search_kernel", "fitpack_fit_kernel"))
 
 
 def attribute_syncs(run, device: torch.device) -> dict | None:

@@ -60,7 +60,7 @@ def stage_times(cfg, state, frames) -> dict:
         (planner.pathing, "run_path_calculation", "path_calculation"),
         (planner.pathing.fpk, "fitpack_fit", "fitpack_fit (inside path_calculation)"),
         (spline, "banded_refined_solve_cuda", "B1 refined solve (inside fitpack_fit)"),
-        (planner.pathing.fpk, "fitpack_part2", "FITPACK part 2, one kernel launch on the card (inside fitpack_fit)"),
+        (planner.pathing.fpk, "fitpack_parts12", "FITPACK parts 1 and 2, one kernel launch on the card (inside fitpack_fit)"),
     ]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, name in patches:

@@ -156,17 +156,17 @@ def _part2_args(seed: int, s: float, m: int, live):
     """The arguments fitpack_fit hands part 2 on seeded traces, captured."""
     pts, mask = seeded_traces(seed, 6, m, 0.05, live)
     seen = []
-    original = tfp.fitpack_part2
+    original = tfp.fitpack_part2_plain
 
     def recording(*args):
         seen.append(args)
         return original(*args)
 
-    tfp.fitpack_part2 = recording
+    tfp.fitpack_part2_plain = recording
     try:
         tfp.fitpack_fit(torch.tensor(pts), torch.tensor(mask), s)
     finally:
-        tfp.fitpack_part2 = original
+        tfp.fitpack_part2_plain = original
     (args,) = seen
     return args
 
@@ -211,18 +211,3 @@ def test_part2_gated_lanes_return_the_lsq_spline():
     gated = _lane((u, points, mask, t_int, n_int, u_max, c_lsq, fp0, fp_lsq, s, acc), 1)
     coef1, trips1 = tfp.fitpack_part2_plain(*gated)
     assert torch.equal(coef1, c_lsq[1:2]) and int(trips1[0]) == 0
-
-
-def test_part2_dispatch_takes_the_plain_version_on_the_cpu():
-    args = _part2_args(8, 0.01, 64, None)
-    launches = tfp.part2_launch_count
-    coef, trips = tfp.fitpack_part2(*args)
-    want, want_trips = tfp.fitpack_part2_plain(*args)
-    assert torch.equal(coef, want) and torch.equal(trips, want_trips)
-    assert tfp.part2_launch_count == launches
-
-
-def test_part2_cuda_wrapper_refuses_what_the_kernel_does_not_take():
-    args = _part2_args(9, 0.2, 64, None)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tfp.fitpack_part2_cuda(*args)

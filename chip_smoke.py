@@ -14,10 +14,10 @@ sites, of a trackdrive and an acceleration batched step at B = 256 and of
 the initial path, through ``tests/part2_check.py``), and
 drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
-of bare solves it replaces; with B2 and with the sorter's scan), then the
-committed 300-frame session through ``PathPlanner`` without and with the
-sorting cache. B2's K = 16 instantiation (the plan server's beam-width
-knob) is held against its plain version too. B1's two
+of bare solves it replaces), then the committed 300-frame session through
+``PathPlanner`` without and with the sorting cache. B2's K = 16
+instantiation (the plan server's beam-width knob) is held against its plain
+version too. B1's two
 entries are also held against their plain versions on the systems the
 relocalizer missions and the global-path branch give them (B = 256 and
 B = 1, up to 704 input points and 1,024 dense samples, and the hairpin
@@ -35,10 +35,9 @@ against its Python engine), ``bench_torch.py`` in-process at reduced depth
 facade replay's paths), the replay CLI as a subprocess with and without
 colour, the plan server on 127.0.0.1 (fixtures against a direct
 ``PathPlanner``, state carried across requests, the knobs that pick B2's
-other instantiations and one that picks the sorter's scan, a malformed
-request) and the viewer export. B2 is held against its plain version at
-every instantiation: the sorter's default (32, 12, 5) and the general ones
-of beam width 8, 16, 32 and 64, at (8, 8, 5), (16, 12, 5), (64, 16, 5) and
+other instantiations and one whose shape the kernel does not take, which
+the card refuses with 400, a malformed request) and the viewer export. B2 is held against its plain version at every instantiation: the
+sorter's default (32, 12, 5) and the general ones of beam width 8, 16, 32 and 64, at (8, 8, 5), (16, 12, 5), (64, 16, 5) and
 (32, 32, 7); the sort cache's hit sequence over the session is compared
 with the JAX package's frame by frame. Then the sharded step against
 ``batched_step`` on a one-rank NCCL group and on two gloo ranks in two
@@ -110,9 +109,9 @@ SORT_CACHE_NEAR_THRESHOLD = (18, 58, 129, 199, 206, 211, 227, 243, 247, 293)
 SHARDED_LATERAL_TOL = 0.01  # sharded step vs batched_step, metres
 METRICS_REL_TOL = 1e-5  # reduced metrics (sum / count) vs batch_metrics (mean)
 # the plan server's knobs that pick another B2 instantiation, and beam width
-# 10, which the kernel does not take (the sorter's scan runs)
+# 10, which the kernel does not take (the card refuses it)
 SERVE_KERNEL_KNOBS = ({"beam_width": 8}, {"beam_width": 64}, {"max_length": 8}, {"max_length": 16})
-SERVE_SCAN_KNOB = {"beam_width": 10}
+SERVE_REFUSED_KNOB = {"beam_width": 10}
 START = time.perf_counter()
 BROKEN_FACTORIZATION_FRAMES = (20, 22)  # acceleration session frames whose hairpin fit breaks a float32 factorization down
 # (B, M) at which the fit kernel is timed: skidpad's two fits, acceleration's
@@ -589,8 +588,7 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
     """B2 against its plain version on searches captured from the main path
     (one batched step at B = 256, N = 128; session frames at N = 256) and on
     a seeded batch whose G is no multiple of 32; then its time at the batch
-    shape beside its bound, the plain version and the sorter's scan."""
-    from ft_fsd_path_planning_torch.models import sorting
+    shape beside its bound and the plain version."""
     from ft_fsd_path_planning_torch.models.facade import flatten_cones_by_type
     from ft_fsd_path_planning_torch.models.planner import FrameInput, make_initial_state, planner_step
     from ft_fsd_path_planning_torch.ops import beam_search as bs
@@ -648,27 +646,18 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
 
     # timing at the batch shape
     _, args, kwargs = cases[0]
-    table, feats0, alive0, params = args
+    table = args[0]
     g, n = table.shape[:2]
     k, c = kwargs["k"], kwargs["c"]
     eager_ms = cuda_ms(lambda: bs.fused_beam_search_cuda(*args, **kwargs), 100)
     ms = graph_ms(lambda: bs.fused_beam_search_cuda(*args, **kwargs), 100)
     plain_ms = cuda_ms(lambda: bs.fused_beam_search_plain(*args, **kwargs), 3)
-    cone_type = torch.where(params[:, bs.P_SIGN] > 0, 2, 1)  # ConeTypes.LEFT, RIGHT
-    scan_ms = cuda_ms(
-        lambda: sorting._beam_scan(
-            cfg.sorting, feats0, alive0 > 0.5, cone_type, params[:, :2].contiguous(),
-            params[:, 2:4].contiguous(), table, params[:, bs.P_TLEN],
-        ),
-        3,
-    )
     nbytes = bs.search_bytes(g, n, k, l, c)
     flops = g * bs.search_flops(n, k, l, c)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
     log(
         f"B2 timing at G={g} N={n} K={k} L={l} C={c}: kernel {ms!r} ms from a CUDA graph "
         f"({eager_ms!r} ms launched one by one from Python), plain {plain_ms!r} ms, "
-        f"the sorter's scan (the repo's other implementation, eager PyTorch) {scan_ms!r} ms, "
         f"bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B -> {bytes_ms!r} ms, {flops} flop -> {ops_ms!r} ms); "
         "no PyTorch call computes this function"
     )
@@ -699,10 +688,9 @@ def phase_b2_vs_plain(cfg, replay_cfg, dev) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "scan_ms": scan_ms,
         "one_frame_ms": ms1,
         "k16_g74_ms": ms16,
-        "timed": "CUDA graph replay of 100 launches; plain_ms and scan_ms launched one by one",
+        "timed": "CUDA graph replay of 100 launches; plain_ms launched one by one",
         "one_by_one_ms": eager_ms,
         "one_by_one_one_frame_ms": eager_ms1,
     }
@@ -968,11 +956,9 @@ def kernel_count(step) -> int:
 
 def phase_batched_step(cfg, dev) -> dict:
     """batched_step at B = 256: counted run, timing, then the same batch with
-    the composition of bare solves in place of B1's fused entry, with the
-    plain solve forced and with the sorter's scan in place of B2, compared.
-    Returns the kernels' launches in one step."""
+    the composition of bare solves in place of B1's fused entry and with the
+    plain solve forced, compared. Returns the kernels' launches in one step."""
     from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
-    from ft_fsd_path_planning_torch.ops import beam_search as bs
     from ft_fsd_path_planning_torch.ops import fitpack, spline
     from ft_fsd_path_planning_torch.parallel import batch, scenarios
 
@@ -1064,27 +1050,6 @@ def phase_batched_step(cfg, dev) -> dict:
     dev_m = lateral(out.path, plain_out.path)
     log(f"kernel vs plain-solve batched_step: max lateral {float(dev_m.max())!r} m, path_ok equal {bool((out.path_ok == plain_out.path_ok).all())}")
     check(float(dev_m.max()) < LATERAL_TOL, "kernel and plain-solve paths differ")
-
-    with env(FT_FSD_FUSED_BEAM="0"):  # the sorter's scan in place of B2
-        reset_counts()
-        scan_out, _ = step()
-        torch.cuda.synchronize()
-        check(bs.launch_count == 0, "FT_FSD_FUSED_BEAM=0 still launched B2")
-        scan_ms, scan_syncs = time_step(step)
-    log(f"batched_step B={BATCH} with the sorter's scan: {scan_ms!r} ms/step, {BATCH / scan_ms * 1e3!r} frames/s, {scan_syncs} host syncs/step")
-    differs = torch.zeros(BATCH, dtype=torch.bool, device=dev)
-    for name in ("sorted_left", "sorted_left_mask", "sorted_right", "sorted_right_mask"):
-        a, b = getattr(out, name), getattr(scan_out, name)
-        differs |= (a != b).reshape(BATCH, -1).any(dim=1)
-    dev_m = lateral(out.path, scan_out.path)
-    log(
-        f"B2 vs scan batched_step: frames sorted differently {int(differs.sum())} "
-        f"{torch.nonzero(differs).flatten().tolist()}, max lateral {float(dev_m.max())!r} m, "
-        f"path_ok equal {bool((out.path_ok == scan_out.path_ok).all())}"
-    )
-    check(not bool(differs.any()), "B2 and the scan sort frames differently")
-    check(float(dev_m.max()) < LATERAL_TOL, "B2 and scan paths differ")
-    check(bool((out.path_ok == scan_out.path_ok).all()), "B2 and scan disagree on path_ok")
     return launches
 
 
@@ -1594,6 +1559,7 @@ def phase_serve(dev) -> dict:
 
     from ft_fsd_path_planning_torch import PathPlanner
     from ft_fsd_path_planning_torch.demo import serve
+    from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
     from ft_fsd_path_planning_torch.ops import beam_search as bs
 
     knob_counts: dict = {}  # B2's launches by instantiation over the knob requests
@@ -1651,8 +1617,8 @@ def phase_serve(dev) -> dict:
         check(len(server.planners) == before + 1 and err <= 1e-4, "beam_width 16 did not get its own planner, or differs")
 
         # B2's other instantiations through the server's knobs, and beam width
-        # 10, which the kernel does not take: the sorter's scan, chosen by
-        # shape before any launch, gives what a planner forced to the scan gives
+        # 10, which the kernel does not take: refused before any launch, by the
+        # server (400, no planner) as by the facade
         for knob in SERVE_KERNEL_KNOBS:
             reset_counts()
             served = plan(knob, [fixtures["hairpin"], fixtures["corner_missing_blue"]])
@@ -1661,23 +1627,25 @@ def phase_serve(dev) -> dict:
             sorting_cfg = serve._build_config(knob).sorting
             want_inst = bs.instantiation(sorting_cfg.beam_width, sorting_cfg.max_length, sorting_cfg.max_n_neighbors)
             err = float(np.abs(served - direct(knob, [fixtures["hairpin"], fixtures["corner_missing_blue"]])).max())
-            with env(FT_FSD_FUSED_BEAM="0"):
-                scan_err = float(np.abs(served - direct(knob, [fixtures["hairpin"], fixtures["corner_missing_blue"]])).max())
-            log(
-                f"plan server: {knob} -> 200, max |served - direct PathPlanner| {err!r} m, against the sorter's "
-                f"scan {scan_err!r} m; launches {knob_launches}"
-            )
+            log(f"plan server: {knob} -> 200, max |served - direct PathPlanner| {err!r} m; launches {knob_launches}")
             check(np.isfinite(served).all() and err <= 1e-4, f"{knob}: served paths differ from the direct facade's")
             check(knob_launches["B2 by instantiation"].get(want_inst, 0) > 0, f"{knob} did not launch B2 {want_inst}")
             for inst, n in knob_launches["B2 by instantiation"].items():
                 knob_counts[inst] = knob_counts.get(inst, 0) + n
         reset_counts()
-        served = plan(SERVE_SCAN_KNOB, [fixtures["hairpin"], fixtures["corner_missing_blue"]])
-        scan_launches = read_counts(f"plan server, {SERVE_SCAN_KNOB}", sorts=False)
-        with env(FT_FSD_FUSED_BEAM="0"):
-            err = float(np.abs(served - direct(SERVE_SCAN_KNOB, [fixtures["hairpin"], fixtures["corner_missing_blue"]])).max())
-        log(f"plan server: {SERVE_SCAN_KNOB} -> 200 through the sorter's scan, launches {scan_launches}, max |served - FT_FSD_FUSED_BEAM=0 facade| {err!r} m")
-        check(np.isfinite(served).all() and err <= 1e-4, f"{SERVE_SCAN_KNOB}: served paths differ from the scan's")
+        before = len(server.planners)
+        status, body = _request(
+            url + "/plan", json.dumps({"config": SERVE_REFUSED_KNOB, "frames": [fixtures["hairpin"]]}).encode()
+        )
+        refused_launches = {"B1": bc.launch_count, "B2": bs.launch_count}
+        log(f"plan server: {SERVE_REFUSED_KNOB} -> {status} ({body.get('error')!r}), {len(server.planners) - before} new planners, launches {refused_launches}")
+        check(status == 400 and "does not take" in body["error"], f"{SERVE_REFUSED_KNOB} returned {status}, not 400")
+        check(len(server.planners) == before and refused_launches == {"B1": 0, "B2": 0}, f"{SERVE_REFUSED_KNOB} ran something")
+        try:
+            direct(SERVE_REFUSED_KNOB, [fixtures["hairpin"]])
+            check(False, f"PathPlanner took {SERVE_REFUSED_KNOB} on the card")
+        except bs.UnsupportedShape:
+            pass
 
         status, body = _request(url + "/plan", b'{"frames": [{"car_position": [0.0, 0.0]}]}')
         check(status == 500 and "slam_cones" in body["error"], f"a malformed request returned {status}")

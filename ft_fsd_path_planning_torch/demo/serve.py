@@ -15,6 +15,8 @@ Then open http://localhost:8008/ — pick a scenario or paste frame JSON
 config fields, and Plan. The server keeps one planner per config, with its
 state carried from request to request; the first plan of a config starts
 that planner (on the card the first plan of all also builds the kernels).
+On the card a config whose sorting shape kernel B2 does not take (say beam
+width 10) is answered 400 and starts no planner.
 
 Endpoints:
   GET  /            the explorer page
@@ -47,6 +49,7 @@ from ft_fsd_path_planning_torch.config import (
 )
 from ft_fsd_path_planning_torch.demo import scenarios
 from ft_fsd_path_planning_torch.device import resolve_device
+from ft_fsd_path_planning_torch.ops.beam_search import UnsupportedShape
 
 SCENARIOS = {
     "straight": scenarios.straight,
@@ -209,6 +212,8 @@ class _Handler(BaseHTTPRequestHandler):
             with self.server.plan_lock:  # planners are stateful
                 result = _plan(payload, self.server.planners, self.server.device)
             self._send(200, json.dumps(result).encode(), "application/json")
+        except UnsupportedShape as e:  # a config the server's device does not run
+            self._send(400, json.dumps({"error": str(e)}).encode(), "application/json")
         except Exception:  # the server keeps serving; the client gets the traceback
             self._send(
                 500,

@@ -31,6 +31,7 @@ from ft_fsd_path_planning_torch.models.planner import (
     planner_step,
     planner_step_presorted,
 )
+from ft_fsd_path_planning_torch.ops import beam_search
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
 from ft_fsd_path_planning_torch.utils.timer import span, spanned
@@ -152,7 +153,9 @@ class PathPlanner:
     """The reference PathPlanner, every mission.
 
     Runs on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"``).
+    ``device="cpu"``). Off the CPU the sorter's search runs only as kernel
+    B2, so a sorting config whose shape the kernel does not take raises
+    ``beam_search.UnsupportedShape`` here, before any state is made.
     """
 
     def __init__(
@@ -165,6 +168,9 @@ class PathPlanner:
         self.mission = mission
         self.cfg = config or default_config(mission, experimental_performance_improvements)
         self.device = resolve_device(device)
+        if self.device.type != "cpu" and not self.cfg.has_relocalizer:
+            s = self.cfg.sorting
+            beam_search.require_kernel_shape(s.beam_width, s.max_length, s.max_n_neighbors)
         self._state = make_initial_state(self.cfg, 1, self.device)
         self.global_path: Optional[FloatArray] = None
         # float64 relocalization refinement bookkeeping (see _refine_reloc_f64)

@@ -9,18 +9,16 @@ K; the winner is chosen by the full 7-term cost (`sorting_cost.py`).
 
 Both sides of every frame run as one batch of G = 2B searches (``cone_type``
 is a (G,) tensor), as the JAX package vmaps over the side. The search itself
-has two implementations that share their initial state: the fused kernel B2
-(`ops/beam_search.py`, one launch for all G searches) and the plain PyTorch
-port of the XLA scan (`_beam_scan`). :func:`_use_fused_beam` picks one.
+is one call of `ops/beam_search.py::fused_beam_search`, which runs it as the
+fused kernel B2 off the CPU (one launch for all G searches) and as B2's plain
+PyTorch version on the CPU.
 """
 
 from __future__ import annotations
 
 import math
-import os
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ft_fsd_path_planning_torch.config import PlannerConfig, SortingConfig
@@ -35,26 +33,6 @@ from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 Tensor = torch.Tensor
 
 _INF = math.inf
-
-
-def _use_fused_beam(device: torch.device, cfg: SortingConfig) -> bool:
-    """Whether the search runs as the fused kernel B2 (`ops/beam_search.py`)
-    or as the scan, read from ``FT_FSD_FUSED_BEAM`` as in the JAX package and
-    from the search's shape.
-
-    On a CUDA device the kernel is the sorter's path unless the variable is
-    ``0`` or the kernel does not take the shape (beam_width, max_length,
-    max_n_neighbors) (`bs.kernel_supports`: beam width 8, 16, 32 or 64, max
-    length up to 32, up to 7 neighbours): the scan is thousands of small
-    launches per call, the kernel one. On the CPU the scan runs unless the
-    variable is ``1``, which selects the kernel's plain PyTorch version (the
-    tests use it). The choice is made from the shape alone, before anything is
-    launched; a kernel that fails to build or launch raises, it never selects
-    the scan."""
-    flag = os.environ.get("FT_FSD_FUSED_BEAM", "")
-    if device.type == "cuda":
-        return flag != "0" and bs.kernel_supports(cfg.beam_width, cfg.max_length, cfg.max_n_neighbors)
-    return flag == "1"
 
 
 def _invert(cone_type: Tensor) -> Tensor:
@@ -220,14 +198,6 @@ def build_adjacency(
 # ---------------------------------------------------------------------------
 
 
-def _angle_xy(ax, ay, bx, by):
-    """geo.vec_angle_between on components (identical arithmetic)."""
-    na = torch.sqrt(torch.clamp(ax * ax + ay * ay, min=0.0))
-    nb = torch.sqrt(torch.clamp(bx * bx + by * by, min=0.0))
-    cos_t = (ax * bx + ay * by) / torch.clamp(na * nb, min=1e-12)
-    return torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
-
-
 def _gate_items(cfg: SortingConfig) -> tuple:
     """The gate constants of the fused search, by name."""
     return (
@@ -298,245 +268,25 @@ def _beam_search_side(
     """Run the beam searches; returns (configs (G, K, L), pool_valid (G, K))."""
     l = cfg.max_length
     feats, alive = _initial_beam_state(cfg, cfg.beam_width, points, prefix, n_first, car_direction)
-    if _use_fused_beam(points.device, cfg):
-        # the whole search loop as one call of kernel B2
-        params = torch.stack(
-            [
-                car_position[:, 0], car_position[:, 1],
-                car_direction[:, 0], car_direction[:, 1],
-                left_sign(cone_type), target_length.to(torch.float32),
-            ],
-            dim=1,
-        )
-        feats, alive_f = bs.fused_beam_search(
-            node_table.contiguous(), feats, alive.to(torch.float32), params,
-            k=cfg.beam_width, l=l, c=cfg.max_n_neighbors,
-            weights=tuple(float(sorting_cost.WEIGHTS[i]) for i in (0, 1, 2, 3, 6)),
-            gates=dict(_gate_items(cfg)),
-        )
-        timer.count("sorting.b2.launches")  # B2's plain version on the CPU; the scan counts none
-        alive = alive_f > 0.5
-    else:
-        feats, alive = _beam_scan(
-            cfg, feats, alive, cone_type, car_position, car_direction, node_table, target_length
-        )
+    params = torch.stack(
+        [
+            car_position[:, 0], car_position[:, 1],
+            car_direction[:, 0], car_direction[:, 1],
+            left_sign(cone_type), target_length.to(torch.float32),
+        ],
+        dim=1,
+    )
+    # the whole search loop as one call: kernel B2 or its plain version
+    feats, alive_f = bs.fused_beam_search(
+        node_table.contiguous(), feats, alive.to(torch.float32), params,
+        k=cfg.beam_width, l=l, c=cfg.max_n_neighbors,
+        weights=tuple(float(sorting_cost.WEIGHTS[i]) for i in (0, 1, 2, 3, 6)),
+        gates=dict(_gate_items(cfg)),
+    )
+    timer.count("sorting.b2.launches")  # one a call: a launch of B2, on the CPU its plain version
+    alive = alive_f > 0.5
     out_configs = torch.round(feats[:, :l]).to(torch.int64).transpose(1, 2)
     return out_configs, alive
-
-
-def _beam_scan(
-    cfg: SortingConfig,
-    feats: Tensor,
-    alive: Tensor,
-    cone_type: Tensor,
-    car_position: Tensor,
-    car_direction: Tensor,
-    node_table: Tensor,
-    target_length: Tensor,
-) -> tuple[Tensor, Tensor]:
-    """The search as a loop of L - 1 steps of plain PyTorch, from the packed
-    initial state; returns the final (feats (G, F, K), alive (G, K)).
-
-    Candidates are flat j-major (G, C*K) arrays, which is the pool's child
-    order, so ties break as in the JAX package.
-    """
-    g, _, k = feats.shape
-    l = cfg.max_length
-    c = cfg.max_n_neighbors
-    ck = c * k
-    dev = feats.device
-    w = [float(v) for v in sorting_cost.WEIGHTS]
-    sgn = left_sign(cone_type)[:, None]
-    under_angle = geo.deg2rad(40.0)
-    cos_between = float(np.cos(np.float32(cfg.between_angle)))
-    side_eps = geo.deg2rad(5.0)
-
-    dnorm = car_direction / _norm(car_direction)[:, None]
-    car_s = car_position - dnorm * cfg.car_size / 2
-    car_e = car_position + dnorm * cfg.car_size
-    col = lambda v: v[:, None]  # noqa: E731  (G,) -> (G, 1)
-    car_sx, car_sy, car_ex, car_ey = col(car_s[:, 0]), col(car_s[:, 1]), col(car_e[:, 0]), col(car_e[:, 1])
-    cp_x, cp_y = col(car_position[:, 0]), col(car_position[:, 1])
-    cd_x, cd_y = col(car_direction[:, 0]), col(car_direction[:, 1])
-
-    def T(a: Tensor) -> Tensor:  # parent column (G, K) -> (G, C*K) j-major
-        return a.repeat(1, c)
-
-    def partial_score(length, angle_sum, n_under, residual, init_cost, wrong_sum):
-        n_int = torch.clamp(length - 2.0, min=1.0)
-        return (
-            w[0] * angle_sum / n_int * (n_under + 1.0)
-            + w[1] * residual
-            + w[2] / torch.clamp(length, min=1.0)
-            + w[3] * init_cost
-            + w[6] * torch.abs(wrong_sum) * (length >= 4.0)
-        )
-
-    iota_k = torch.arange(k, device=dev)[None, :]
-    for _ in range(l - 1):
-        configs = [feats[:, j] for j in range(l)]
-        lengths = feats[:, l]
-        done = feats[:, l + 1] > 0.5
-        angle_sum, n_under = feats[:, l + 2], feats[:, l + 3]
-        residual, init_cost = feats[:, l + 4], feats[:, l + 5]
-        wrong_sum, last_idx = feats[:, l + 6], feats[:, l + 7]
-        last_x, last_y = feats[:, l + 8], feats[:, l + 9]
-        prev_x, prev_y = feats[:, l + 10], feats[:, l + 11]
-        prev2_x, prev2_y = feats[:, l + 12], feats[:, l + 13]
-        first_x, first_y = feats[:, l + 14], feats[:, l + 15]
-        p = lengths - 1.0
-
-        # expansion: the node-table row of each beam's tail cone
-        row = gl.take_rows(node_table, torch.round(last_idx).to(torch.int64))  # (G, K, 4C)
-
-        def flat_block(off):  # (G, K, C) slice -> (G, C*K) j-major
-            return row[:, :, off * c : (off + 1) * c].transpose(1, 2).reshape(g, ck)
-
-        cand_f = flat_block(0)
-        can0_f = flat_block(1) > 0.5
-        cx_f = flat_block(2)
-        cy_f = flat_block(3)
-
-        # shared tail geometry (per parent, tiled once)
-        mjx, mjy = last_x - prev_x, last_y - prev_y
-        inv = torch.rsqrt(torch.clamp(mjx * mjx + mjy * mjy, min=1e-24))
-        umx, umy = mjx * inv, mjy * inv  # ellipse major direction
-        ppx, ppy = prev_x - prev2_x, prev_y - prev2_y
-        diff2 = torch.atan2(ppx * mjy - ppy * mjx, ppx * mjx + ppy * mjy)
-
-        expandable = alive & ~done & (lengths < target_length[:, None])
-
-        lx, ly = T(last_x), T(last_y)
-        p_f = T(p)
-        umx_f, umy_f = T(umx), T(umy)
-        fx, fy = T(first_x), T(first_y)
-        relx, rely = cx_f - lx, cy_f - ly
-
-        # 1. not already in config
-        in_cfg = T(configs[0]) == cand_f
-        for jj in range(1, l):
-            in_cfg = in_cfg | (T(configs[jj]) == cand_f)
-        ok = can0_f & ~in_cfg
-        # 2. ellipse gate (p >= 1)
-        xr = relx * umx_f + rely * umy_f
-        yr = umx_f * rely - umy_f * relx
-        ell = (xr / cfg.ellipse_major) ** 2 + (yr / cfg.ellipse_minor) ** 2 < 1.0
-        ok = ok & (ell | (p_f < 1.0))
-        # 3. second cone on the correct side (p == 0)
-        ccx, ccy = cx_f - cp_x, cy_f - cp_y
-        dsign = torch.atan2(cd_x * ccy - cd_y * ccx, cd_x * ccx + cd_y * ccy)
-        side_ok = (torch.sign(dsign) == sgn) | (torch.abs(dsign) < side_eps)
-        ok = ok & (side_ok | (p_f != 0.0))
-        # 4. no cone skipped between last and candidate
-        blocked = torch.zeros_like(ok)
-        for m in range(c):
-            cxm = T(row[:, :, 2 * c + m])
-            cym = T(row[:, :, 3 * c + m])
-            can0m = T(row[:, :, c + m] > 0.5)
-            candm = T(row[:, :, m])
-            d_ml_m = torch.sqrt((lx - cxm) ** 2 + (ly - cym) ** 2)
-            vmcx, vmcy = cx_f - cxm, cy_f - cym
-            d_mc = torch.sqrt(vmcx * vmcx + vmcy * vmcy)
-            dots = (lx - cxm) * vmcx + (ly - cym) * vmcy
-            blocked = blocked | (
-                can0m
-                & (cand_f != candm)
-                & (d_mc < cfg.between_dist)
-                & (d_ml_m < cfg.between_dist)
-                & (dots < cos_between * d_ml_m * d_mc)
-            )
-        ok = ok & ~blocked
-        # 5. direction-change thresholds (p >= 1)
-        mjx_f, mjy_f = T(mjx), T(mjy)
-        dj = torch.atan2(mjx_f * rely - mjy_f * relx, mjx_f * relx + mjy_f * rely)
-        sl = torch.sqrt(relx * relx + rely * rely)
-        abs_ok = torch.abs(dj) <= cfg.threshold_absolute_angle
-        directional = (sgn * dj < cfg.threshold_directional_angle) | (sl < cfg.close_cone_dist)
-        ok = ok & ((abs_ok & directional) | (p_f < 1.0))
-        # 6. flip-kill (p >= 2)
-        diff2_f = T(diff2)
-        flip = (torch.sign(dj) != torch.sign(diff2_f)) & (torch.abs(dj - diff2_f) > 1.3)
-        ok = ok & (~flip | (p_f < 2.0))
-        # 7. offset from start (p == 1)
-        off_ok = cd_x * (cx_f - fx) + cd_y * (cy_f - fy) > 0.0
-        ok = ok & (off_ok | (p_f != 1.0))
-        # 8. no car-body crossing (geo.segments_intersect on components)
-        eps = 1e-6
-        bdx, bdy = car_ex - car_sx, car_ey - car_sy
-        d1 = bdx * (ly - car_sy) - bdy * (lx - car_sx)
-        d2 = bdx * (cy_f - car_sy) - bdy * (cx_f - car_sx)
-        d3 = relx * (car_sy - ly) - rely * (car_sx - lx)
-        d4 = relx * (car_ey - ly) - rely * (car_ex - lx)
-        proper = ((d1 > eps) & (d2 < -eps) | (d1 < -eps) & (d2 > eps)) & (
-            (d3 > eps) & (d4 < -eps) | (d3 < -eps) & (d4 > eps)
-        )
-
-        def on_seg(px0, py0, qx, qy, rx, ry):
-            wx = (rx >= torch.minimum(px0, qx) - eps) & (rx <= torch.maximum(px0, qx) + eps)
-            wy = (ry >= torch.minimum(py0, qy) - eps) & (ry <= torch.maximum(py0, qy) + eps)
-            return wx & wy
-
-        collinear_touch = (
-            (torch.abs(d1) <= eps) & on_seg(car_sx, car_sy, car_ex, car_ey, lx, ly)
-            | (torch.abs(d2) <= eps) & on_seg(car_sx, car_sy, car_ex, car_ey, cx_f, cy_f)
-            | (torch.abs(d3) <= eps) & on_seg(lx, ly, cx_f, cy_f, car_sx, car_sy)
-            | (torch.abs(d4) <= eps) & on_seg(lx, ly, cx_f, cy_f, car_ex, car_ey)
-        )
-        ok = ok & ~(proper | collinear_touch) & T(expandable)
-
-        theta_f = _angle_xy(T(prev_x) - lx, T(prev_y) - ly, relx, rely)
-
-        # children carries + scores, flat
-        add_int_f = T(p >= 1.0)
-        c_len_f = T(lengths + 1.0)
-        zero = torch.zeros_like(theta_f)
-        a_sum_f = T(angle_sum) + torch.where(add_int_f, (math.pi - theta_f) / math.pi, zero)
-        nu_f = T(n_under) + torch.where(add_int_f & (theta_f < under_angle), 1.0, 0.0)
-        res_f = T(residual) + torch.clamp(sl - 3.0, min=0.0)
-        f_ang = _angle_xy(cx_f - fx, cy_f - fy, cd_x, cd_y)
-        ini_f = torch.where(p_f == 0.0, f_ang, T(init_cost))
-        wr_f = T(wrong_sum) + torch.where(
-            add_int_f & (torch.sign(dj) == sgn) & (torch.abs(dj) > under_angle), dj, zero
-        )
-        sc = partial_score(c_len_f, a_sum_f, nu_f, res_f, ini_f, wr_f)
-        scores_children_f = torch.where(ok, sc, _inf_like(sc))
-
-        # parents that could not expand become leaves
-        any_can = torch.any(ok.reshape(g, c, k), dim=1)
-        done2 = done | (expandable & ~any_can)
-        frozen = alive & (done2 | ~expandable)
-        parent_score = torch.where(
-            frozen,
-            partial_score(lengths, angle_sum, n_under, residual, init_cost, wrong_sum),
-            _inf_like(lengths),
-        )
-
-        # pool: K frozen parents + the j-major flat children -> (G, F, P)
-        child_rows = [
-            torch.where(T(lengths) == float(jj), cand_f, T(configs[jj])) for jj in range(l)
-        ]
-        child_rows += [
-            c_len_f, torch.zeros_like(c_len_f), a_sum_f, nu_f, res_f, ini_f, wr_f,
-            cand_f, cx_f, cy_f, lx, ly, T(prev_x), T(prev_y), fx, fy,
-        ]
-        parent_feats = feats.clone()
-        parent_feats[:, l + 1] = done2.to(feats.dtype)
-        pool_feats = torch.cat([parent_feats, torch.stack(child_rows, dim=1)], dim=2)
-        pool_scores = torch.cat([parent_score, scores_children_f], dim=1)
-
-        # exact top-K by (score, pool index): a stable ascending sort
-        sel = torch.sort(pool_scores, dim=1, stable=True).indices[:, :k]
-        feats = torch.take_along_dim(pool_feats, sel[:, None, :], dim=2)
-        sel_valid = iota_k < torch.sum(torch.isfinite(pool_scores), dim=1, keepdim=True)
-
-        # invalid slots: configs -1, length 0, done 0, last_idx -1
-        invalid = ~sel_valid[:, None, :]
-        feats[:, :l] = torch.where(invalid, -1.0, feats[:, :l])
-        feats[:, l : l + 2] = torch.where(invalid, 0.0, feats[:, l : l + 2])
-        feats[:, l + 7 : l + 8] = torch.where(invalid, -1.0, feats[:, l + 7 : l + 8])
-        alive = sel_valid
-
-    return feats, alive
 
 
 def _postfilter_pool(

@@ -10,8 +10,8 @@ expand the K beam fronts over the C neighbours of each tail cone, apply the
 eight pruning gates, update the partial cost, keep the best K of the
 ``P = K + K*C`` pool by (score, pool index) and repack the survivors.
 
-Feature-row layout of the state (shared with the scan in
-`models/sorting.py`), F = L + 16 rows of K columns:
+Feature-row layout of the state (packed by `models/sorting.py`), F = L + 16
+rows of K columns:
 
   [configs(L) | length | done | angle_sum | n_under | residual | init_cost |
    wrong_sum | last_idx | last_pos(2) | prev_pos(2) | prev2_pos(2) |
@@ -21,7 +21,9 @@ Pool order: entries ``0..K-1`` are the frozen parents, entry
 ``K + j*K + k`` is the child of beam ``k`` over neighbour ``j``.
 
 :func:`fused_beam_search` takes the plain version only for tensors on the
-CPU. For a CUDA tensor it launches the kernel or raises.
+CPU. Off the CPU it launches the kernel or raises: a search shape the kernel
+does not take raises :class:`UnsupportedShape`, which a planner for the card
+raises already when it is made (:func:`require_kernel_shape`).
 """
 
 from __future__ import annotations
@@ -52,12 +54,25 @@ KERNEL_MAX_LENGTH = 32
 KERNEL_MAX_NEIGHBORS = 7
 
 
+class UnsupportedShape(ValueError):
+    """A search shape (K, L, C) the kernel does not take, asked of a device
+    other than the CPU, where the search runs only as the kernel."""
+
+
 def kernel_supports(k: int, l: int, c: int) -> bool:
     """Whether the CUDA kernel takes the search shape (K, L, C) = (beam
     width, max length, max neighbours): K in {8, 16, 32, 64}, 1 <= L <= 32,
-    1 <= C <= 7. The sorter decides by this, before any launch, whether a
-    search on a CUDA device runs as the kernel or as its scan."""
+    1 <= C <= 7."""
     return k in KERNEL_BEAM_WIDTHS and 1 <= l <= KERNEL_MAX_LENGTH and 1 <= c <= KERNEL_MAX_NEIGHBORS
+
+
+def require_kernel_shape(k: int, l: int, c: int) -> None:
+    """Raise :class:`UnsupportedShape` unless the kernel takes (K, L, C)."""
+    if not kernel_supports(k, l, c):
+        raise UnsupportedShape(
+            f"the kernel does not take (K, L, C) = {(k, l, c)}: K in {KERNEL_BEAM_WIDTHS}, "
+            f"L <= {KERNEL_MAX_LENGTH}, C <= {KERNEL_MAX_NEIGHBORS}"
+        )
 
 
 def instantiation(k: int, l: int, c: int) -> str:
@@ -441,11 +456,7 @@ def fused_beam_search_cuda(
     """Launch the CUDA kernel on the current stream (no synchronisation):
     one block per search, eight lanes per beam."""
     global launch_count
-    if not kernel_supports(k, l, c):
-        raise ValueError(
-            f"the kernel does not take (K, L, C) = {(k, l, c)}: K in {KERNEL_BEAM_WIDTHS}, "
-            f"L <= {KERNEL_MAX_LENGTH}, C <= {KERNEL_MAX_NEIGHBORS}"
-        )
+    require_kernel_shape(k, l, c)
     tensors = (node_table, feats0, alive0, params)
     if any(t.device.type != "cuda" or t.device != node_table.device for t in tensors):
         raise ValueError("fused_beam_search_cuda takes CUDA tensors on one device")
@@ -490,8 +501,8 @@ def fused_beam_search(
     gates: dict,
 ) -> tuple[Tensor, Tensor]:
     """Run the whole beam search for G independent side-searches: returns
-    (feats (G, F, K), alive (G, K)). CPU tensors take the plain version; CUDA
-    tensors the kernel."""
+    (feats (G, F, K), alive (G, K)). CPU tensors take the plain version;
+    any other the kernel, which raises at a shape it does not take."""
     run = fused_beam_search_plain if node_table.device.type == "cpu" else fused_beam_search_cuda
     return run(node_table, feats0, alive0, params, k=k, l=l, c=c, weights=weights, gates=gates)
 

@@ -9,9 +9,8 @@ SE(2) (first from a fresh state, the step in which every lane relocalizes,
 then from the relocalized state, the step a mission spends its time in),
 after a warm-up, and prints, as one JSON line a step: the step's wall time;
 the wall time of each stage (relocalization on a relocalizer mission;
-sorting with kernel B2 inside it, or the sorter's scan under
-``FT_FSD_FUSED_BEAM=0``; matching; path calculation, the FITPACK fits inside
-it and kernel B1's refined solve, one launch of its fused entry; with
+sorting with kernel B2 inside it; matching; path calculation, the FITPACK
+fits inside it and kernel B1's refined solve, one launch of its fused entry; with
 ``--composition`` the composition of two bare solves and the band helpers
 that the fused entry replaces), each measured with a synchronise before and
 after, so the stages do not overlap; and, from ``torch.profiler``, the device time summed over all
@@ -55,7 +54,6 @@ def stage_times(cfg, state, frames) -> dict:
         (planner.relocalization, "attempt_relocalization", "relocalization"),
         (planner.sorting, "run_cone_sorting", "sorting"),
         (planner.sorting.bs, "fused_beam_search", "B2 fused beam search (inside sorting)"),
-        (planner.sorting, "_beam_scan", "beam scan (inside sorting)"),
         (planner.matching, "run_cone_matching", "matching"),
         (planner.pathing, "run_path_calculation", "path_calculation"),
         (planner.pathing.fpk, "fitpack_fit", "fitpack_fit (inside path_calculation)"),
@@ -155,7 +153,7 @@ def main() -> None:
             "n_cones": args.n_cones,
             "step_ms": step_ms,
             "stage_ms": stages,
-            "sorter_search": "none" if cfg.has_relocalizer else "B2" if planner.sorting._use_fused_beam(frames.cones.device, cfg.sorting) else "scan",
+            "sorter_search": "B2" if beam_search.launch_count else "none",
             "refined_solve": "composition of bare solves" if args.composition else "fused entry",
             "b1_launches": banded_cholesky.launch_count,
             "b2_launches": beam_search.launch_count,

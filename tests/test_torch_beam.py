@@ -1,7 +1,7 @@
 """Kernel B2's plain PyTorch version against the Pallas kernel, and the
-port's sorter on its fused path against its scan and the JAX XLA scan.
+port's sorter against the JAX package's XLA scan.
 
-On the CPU the port's fused search runs its plain version, which repeats the
+On the CPU the port's search runs B2's plain version, which repeats the
 CUDA kernel's arithmetic operation for operation; the kernel itself is held
 against it on the card by chip_smoke.py. Inputs: `make_frame_batch(seed)`,
 8 frames (G = 16 searches) at n_cones = 64 for the packed comparison, 16
@@ -21,13 +21,15 @@ frames for the sorter. Tolerances:
   pairwise rank of the plain version, ties, signed zeros and negative scores
   included, at every beam width the kernel is built for and at C = 7, where
   every lane of a group holds an entry;
-* at the other search shapes the kernel takes, for 4 frames (G = 8): the
-  plain version against the Pallas kernel at (64, 16, 5) and (16, 12, 5), and
-  against the port's scan from the same packed state and, through the
-  sorter, the JAX scan at (8, 8, 5) (the tiny configuration of the
-  distributed tests, whose pool of 48 the Pallas kernel refuses) and
-  (64, 16, 5), with the bars above; the sorter picks kernel or scan by shape
-  alone.
+* at the other search shapes, for 4 frames (G = 8): the plain version
+  against the Pallas kernel at (64, 16, 5) and (16, 12, 5), and, through the
+  sorter, against the JAX scan at (8, 8, 5) (the tiny configuration of the
+  distributed tests, whose pool of 48 the Pallas kernel refuses), at
+  (64, 16, 5) and at two shapes the CUDA kernel does not take, which the
+  CPU runs and the card refuses, with the bars above;
+  `fused_beam_search` picks kernel or plain version by device alone, and off
+  the CPU a shape the kernel does not take is refused before any launch, by
+  the kernel's wrapper and already by a planner made for such a device.
 """
 
 import dataclasses
@@ -45,9 +47,11 @@ from ft_fsd_path_planning_tpu.ops.pallas import beam_search as jbs
 from ft_fsd_path_planning_tpu.parallel import scenarios as jscen
 from ft_fsd_path_planning_tpu.config import SortingConfig as JaxSortingConfig
 from ft_fsd_path_planning_torch.config import SortingConfig, default_config as torch_config
+from ft_fsd_path_planning_torch.models import facade
 from ft_fsd_path_planning_torch.models import sorting as ts
 from ft_fsd_path_planning_torch.ops import beam_search as tbs
 from ft_fsd_path_planning_torch.parallel import scenarios as tscen
+from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
 
 # the port's ops are small tensors: one intra-op thread is as fast here and
 # leaves the cores to the other test workers
@@ -61,11 +65,6 @@ PACKED_SEEDS = (11, 3)
 SORTER_SEEDS = (11, 5)
 INT_ROWS = list(range(L)) + [L, L + 1, L + 7]
 FLOAT_ROWS = [r for r in range(L + 16) if r not in INT_ROWS]
-
-
-def _sort(frames, monkeypatch, fused: bool):
-    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "1" if fused else "0")
-    return ts.run_cone_sorting(TCFG, frames.cones, frames.mask, frames.position, frames.direction)
 
 
 def _packed_searches(tcfg, n_frames: int, seeds, pallas: bool = True) -> dict:
@@ -85,7 +84,6 @@ def _packed_searches(tcfg, n_frames: int, seeds, pallas: bool = True) -> dict:
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ts.bs, "fused_beam_search", recording)
         for seed in seeds:
-            mp.setenv("FT_FSD_FUSED_BEAM", "1")
             ts.run_cone_sorting(tcfg, *_frame_args(tscen.make_frame_batch(tcfg, n_frames, seed=seed, device="cpu")))
             args, kwargs = captured["call"]
             ours = tbs.fused_beam_search_plain(*args, **kwargs)
@@ -162,41 +160,32 @@ def jax_sorter():
     ))
 
 
+def _assert_sorted_like(ours, theirs):
+    """Masks equal, cones to 1e-5 m."""
+    for name in theirs._fields:
+        o, j = getattr(ours, name).numpy(), getattr(theirs, name)
+        if o.dtype == bool:
+            np.testing.assert_array_equal(o, j, err_msg=name)
+        else:
+            np.testing.assert_allclose(o, j, atol=1e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("seed", SORTER_SEEDS)
-def test_sorter_fused_matches_scan_and_jax(jax_sorter, monkeypatch, seed):
+def test_sorter_fused_matches_scan_and_jax(jax_sorter, seed):
+    """The port's sorter (B2's plain version on the CPU) against the JAX
+    package's scan."""
     frames = tscen.make_frame_batch(TCFG, 16, seed=seed, device="cpu")
     tbs.reset_launch_count()
-    fused = _sort(frames, monkeypatch, fused=True)
-    scan = _sort(frames, monkeypatch, fused=False)
+    ours = ts.run_cone_sorting(TCFG, *_frame_args(frames))
     theirs = jax.tree.map(np.asarray, jax_sorter(jscen.make_frame_batch(JCFG, 16, seed=seed)))
     assert tbs.launch_count == 0
-    for name in fused._fields:
-        f, s, j = getattr(fused, name).numpy(), getattr(scan, name).numpy(), getattr(theirs, name)
-        if f.dtype == bool:
-            np.testing.assert_array_equal(f, s, err_msg=name)
-            np.testing.assert_array_equal(f, j, err_msg=name)
-        else:
-            np.testing.assert_allclose(f, s, atol=1e-5, err_msg=name)
-            np.testing.assert_allclose(f, j, atol=1e-5, err_msg=name)
+    _assert_sorted_like(ours, theirs)
     assert theirs.left_mask.sum() > 3 * 16 and theirs.right_mask.sum() > 3 * 16
-
-
-@pytest.mark.parametrize(
-    "device,flag,want",
-    [("cpu", None, False), ("cpu", "0", False), ("cpu", "1", True),
-     ("cuda", None, True), ("cuda", "1", True), ("cuda", "0", False)],
-)
-def test_switch(monkeypatch, device, flag, want):
-    if flag is None:
-        monkeypatch.delenv("FT_FSD_FUSED_BEAM", raising=False)
-    else:
-        monkeypatch.setenv("FT_FSD_FUSED_BEAM", flag)
-    assert ts._use_fused_beam(torch.device(device), TCFG.sorting) is want
 
 
 # (K, L, C) = (beam_width, max_length, max_n_neighbors): the kernel's shapes,
 # then two it does not take (a beam width between its instantiations, a max
-# length above its bound), which run as the scan on the card
+# length above its bound), which only the CPU runs
 SHAPES = {
     (8, 8, 5): True, (16, 12, 5): True, (32, 12, 5): True, (64, 16, 5): True, (32, 32, 7): True,
     (10, 12, 5): False, (32, 40, 5): False,
@@ -208,19 +197,46 @@ def _sorting_cfg(k: int, l: int, c: int) -> SortingConfig:
 
 
 @pytest.mark.parametrize("shape", list(SHAPES), ids=str)
-def test_kernel_supports_and_dispatch_by_shape(monkeypatch, shape):
-    """The sorter picks kernel or scan from the shape alone: on a CUDA
-    device the kernel where it takes the shape, else the scan, whatever the
-    flag asks; on the CPU the flag alone decides."""
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_kernel_supports_and_dispatch_by_shape(monkeypatch, device, shape):
+    """`fused_beam_search` picks kernel or plain version from the device
+    alone: the plain version on the CPU at every shape; off the CPU (a meta
+    tensor stands for the card's) the kernel, whose wrapper refuses a shape
+    it does not take before it launches anything, as a planner made for such
+    a device does when it is made."""
     assert tbs.kernel_supports(*shape) is SHAPES[shape]
-    cfg = _sorting_cfg(*shape)
-    monkeypatch.delenv("FT_FSD_FUSED_BEAM", raising=False)
-    assert ts._use_fused_beam(torch.device("cuda"), cfg) is SHAPES[shape]
-    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "1")
-    assert ts._use_fused_beam(torch.device("cuda"), cfg) is SHAPES[shape]
-    assert ts._use_fused_beam(torch.device("cpu"), cfg) is True
-    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "0")
-    assert ts._use_fused_beam(torch.device("cuda"), cfg) is False
+    # the planner's state is not made on a meta device; the refusal precedes it
+    monkeypatch.setattr(facade, "make_initial_state", lambda cfg, batch, dev: None)
+    cfg = torch_config(n_cones=N, sorting=_sorting_cfg(*shape))
+    if device != "cpu" and not SHAPES[shape]:
+        with pytest.raises(tbs.UnsupportedShape, match="does not take"):
+            facade.PathPlanner(MissionTypes.trackdrive, config=cfg, device=device)
+    else:
+        assert facade.PathPlanner(MissionTypes.trackdrive, config=cfg, device=device).cfg == cfg
+    calls = []
+
+    def recorder(name):
+        def run(node_table, feats0, alive0, params, **kwargs):
+            calls.append(name)
+            return feats0, alive0
+        return run
+
+    monkeypatch.setattr(tbs, "fused_beam_search_cuda", recorder("kernel"))
+    monkeypatch.setattr(tbs, "fused_beam_search_plain", recorder("plain"))
+    k, l, c = shape
+    g, n = 4, 16
+    args = (
+        torch.empty((g, n, 4 * c), device=device), torch.empty((g, tbs.feature_rows(l), k), device=device),
+        torch.empty((g, k), device=device), torch.empty((g, tbs.N_PARAMS), device=device),
+    )
+    tbs.fused_beam_search(*args, k=k, l=l, c=c, weights=(), gates={})
+    assert calls == ["plain" if device == "cpu" else "kernel"]
+    if device != "cpu" and not SHAPES[shape]:
+        monkeypatch.undo()
+        tbs.reset_launch_count()
+        with pytest.raises(tbs.UnsupportedShape, match="does not take"):
+            tbs.fused_beam_search(*args, k=k, l=l, c=c, weights=(), gates={})
+        assert tbs.launch_count == 0
 
 
 def test_cuda_wrapper_refuses_shapes_the_kernel_does_not_take(packed):
@@ -235,11 +251,12 @@ def test_cuda_wrapper_refuses_shapes_the_kernel_does_not_take(packed):
 
 
 OTHER_SHAPES = ((8, 8, 5), (64, 16, 5))  # kernel shapes beside the default, held on the CPU
+# shapes the kernel does not take, which only the CPU runs
+REFUSED_SHAPES = tuple(s for s, ok in SHAPES.items() if not ok)
 # the Pallas kernel ranks its pool in chunks of 32 entries
 # (ops/pallas/beam_search.py:372-389) and refuses a pool K + K C that is no
-# multiple of 32, such as (8, 8, 5)'s 48; there the plain version is held
-# against the port's scan on the same packed state and, through the sorter,
-# against the JAX package's scan
+# multiple of 32, such as (8, 8, 5)'s 48; there the plain version is held,
+# through the sorter, against the JAX package's scan
 PALLAS_SHAPES = ((64, 16, 5), (16, 12, 5))
 OTHER_SEED = 11
 
@@ -270,52 +287,19 @@ def test_plain_search_matches_pallas_interpret_at_other_shapes(packed_other, sha
     assert alive[:, 0].sum() >= 4 and feats[:, l].max() >= 5
 
 
-@pytest.mark.parametrize("shape", OTHER_SHAPES, ids=str)
-def test_plain_search_matches_scan_at_other_shapes(packed_other, shape):
-    """The plain version and the port's scan from the same packed state:
-    integer rows and alive equal, float rows to 1e-5."""
-    k, l, c = shape
-    args, kwargs, (feats, alive), _ = packed_other[shape]
-    table, feats0, alive0, params = args
-    cfg = _sorting_cfg(k, l, c)
-    cone_type = torch.where(params[:, tbs.P_SIGN] > 0, 2, 1)
-    scan_feats, scan_alive = ts._beam_scan(
-        cfg, feats0, alive0 > 0.5, cone_type, params[:, :2].contiguous(),
-        params[:, 2:4].contiguous(), table, params[:, tbs.P_TLEN],
-    )
-    valid = alive > 0.5
-    assert torch.equal(valid, scan_alive)
-    int_rows = list(range(l)) + [l, l + 1, l + 7]
-    np.testing.assert_array_equal(feats[:, int_rows].numpy(), scan_feats[:, int_rows].numpy())
-    v = valid.numpy()  # the float rows of the survivors, (n, F)
-    got, want = np.moveaxis(feats.numpy(), 1, 2)[v], np.moveaxis(scan_feats.numpy(), 1, 2)[v]
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    assert int(valid[:, 0].sum()) >= 4 and feats[:, l].max() >= 5
-
-
-@pytest.mark.parametrize("shape", OTHER_SHAPES, ids=str)
-def test_sorter_fused_matches_scan_and_jax_at_other_shapes(monkeypatch, shape):
+@pytest.mark.parametrize("shape", OTHER_SHAPES + REFUSED_SHAPES, ids=str)
+def test_sorter_fused_matches_scan_and_jax_at_other_shapes(shape):
     k, l, c = shape
     tcfg = torch_config(n_cones=N, sorting=_sorting_cfg(k, l, c))
     jcfg = jax_config(n_cones=N, sorting=JaxSortingConfig(beam_width=k, max_length=l, max_n_neighbors=c))
     assert dataclasses.asdict(tcfg.sorting) == dataclasses.asdict(jcfg.sorting)
     frames = tscen.make_frame_batch(tcfg, 4, seed=OTHER_SEED, device="cpu")
-    outs = {}
-    for flag in ("1", "0"):
-        monkeypatch.setenv("FT_FSD_FUSED_BEAM", flag)
-        outs[flag] = ts.run_cone_sorting(tcfg, *_frame_args(frames))
+    ours = ts.run_cone_sorting(tcfg, *_frame_args(frames))
     jframes = jscen.make_frame_batch(jcfg, 4, seed=OTHER_SEED)
     theirs = jax.tree.map(np.asarray, jax.jit(jax.vmap(
         lambda f: js.run_cone_sorting(jcfg, f.cones, f.mask, f.position, f.direction)
     ))(jframes))
-    for name in theirs._fields:
-        f, s, j = getattr(outs["1"], name).numpy(), getattr(outs["0"], name).numpy(), getattr(theirs, name)
-        if f.dtype == bool:
-            np.testing.assert_array_equal(f, s, err_msg=name)
-            np.testing.assert_array_equal(f, j, err_msg=name)
-        else:
-            np.testing.assert_allclose(f, s, atol=1e-5, err_msg=name)
-            np.testing.assert_allclose(f, j, atol=1e-5, err_msg=name)
+    _assert_sorted_like(ours, theirs)
     assert theirs.left_mask.sum() > 2 * 4 and theirs.right_mask.sum() > 2 * 4
 
 

@@ -9,6 +9,9 @@
   with the error) and then a good one again (200), and a second request to
   the same config that carries the planner's state on.
 * Without a GPU the server refuses to start unless given the CPU.
+* A server off the CPU (on a meta device, which stands for the card's)
+  answers 400 to a config whose sorting shape kernel B2 does not take, and
+  starts no planner for it.
 """
 
 import dataclasses
@@ -133,18 +136,19 @@ def test_plan_matches_jax_and_recovers_from_a_bad_request(server):
     assert all(dev == torch.device("cpu") and p.device == dev for (_, dev), p in planners.items())
 
 
-def test_beam_width_16_through_the_kernels_plain_version(monkeypatch):
+def test_beam_width_16_through_the_kernels_plain_version():
     """The plan server's beam-width knob at 16, the kernel's second
     instantiation: B2's plain version (what the kernel is held against on
-    the card) gives the sorter's scan's paths and sorted sides."""
+    the card) sorts both sides as the JAX package's sorter does at that
+    config, and the paths agree as the fixtures' do."""
     frames = [jserve._scenario_payload()[n] for n in ("hairpin_extreme", "corner_missing_blue")]
     payload = {"config": {"beam_width": 16}, "frames": frames}
-    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "1")
-    fused = serve._plan(payload, {}, torch.device("cpu"))
-    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "0")
-    scan = serve._plan(payload, {}, torch.device("cpu"))
-    assert fused["paths"] == scan["paths"]
-    assert [i["sorted_left"] for i in fused["intermediates"]] == [i["sorted_left"] for i in scan["intermediates"]]
+    ours = serve._plan(payload, {}, torch.device("cpu"))
+    theirs = jserve._plan(json.loads(json.dumps(payload)))
+    for side in ("sorted_left", "sorted_right"):
+        assert [i[side] for i in ours["intermediates"]] == [i[side] for i in theirs["intermediates"]], side
+    for path, jpath in zip(ours["paths"], theirs["paths"]):
+        assert path_parity_deviation(np.asarray(jpath), np.asarray(path)) < LATERAL_TOL
     assert beam_search.kernel_supports(16, 12, 5)
 
 
@@ -152,3 +156,19 @@ def test_server_refuses_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.PlanServer(("127.0.0.1", 0))
+
+
+@pytest.mark.parametrize("knob", [{"beam_width": 10}, {"max_length": 40}], ids=str)
+def test_a_server_off_the_cpu_answers_400_to_a_shape_the_kernel_does_not_take(knob):
+    srv = serve.PlanServer(("127.0.0.1", 0), device="meta")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        payload = {"config": knob, "frames": [jserve._scenario_payload()["hairpin"]]}
+        status, body = _post(f"http://127.0.0.1:{srv.server_address[1]}", json.dumps(payload).encode())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    assert status == 400 and "does not take" in body["error"], body
+    assert srv.planners == {}

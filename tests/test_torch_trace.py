@@ -4,7 +4,7 @@
 * Inside it, a few facade frames give every span of the mission, nested as
   the program nests them, FITPACK's trip counters add up to `loop_syncs`,
   and a trackdrive frame opens the sorter's and the matcher's span once and
-  counts one launch of B2 (`sorting.b2.launches`; the scan counts none).
+  counts one launch of B2 (`sorting.b2.launches`).
 * A function under ``spanned`` keeps its name and its result, and records
   its calls only while recording.
 * Under `torch.profiler` the spans are ranges of the trace, each named
@@ -23,12 +23,12 @@ import pytest
 import torch
 
 from ft_fsd_path_planning_torch import PathPlanner
-from ft_fsd_path_planning_torch.config import default_config
+from ft_fsd_path_planning_torch.config import SortingConfig, default_config
 from ft_fsd_path_planning_torch.models import facade, matching, pathing, planner, relocalization, sorting
 from ft_fsd_path_planning_torch.ops import banded_cholesky as bc
 from ft_fsd_path_planning_torch.ops import beam_search as bs
 from ft_fsd_path_planning_torch.ops import fitpack, spline
-from ft_fsd_path_planning_torch.parallel.scenarios import closed_track_frames, skidpad_session
+from ft_fsd_path_planning_torch.parallel.scenarios import closed_track_frames, make_frame_batch, skidpad_session
 from ft_fsd_path_planning_torch.utils import timer
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
 
@@ -87,8 +87,6 @@ def recorded(request):
     """A new planner's first frames inside ``recording()``: (mission, the
     table, FITPACK's loop syncs over them, the number of frames)."""
     mission, cfg, frames = _frames(request.param)
-    mp = pytest.MonkeyPatch()
-    mp.setenv("FT_FSD_FUSED_BEAM", "1")
     try:
         p = PathPlanner(mission, config=cfg, device="cpu")
         timer.reset()
@@ -99,7 +97,6 @@ def recorded(request):
         syncs = fitpack.loop_syncs - syncs0
         table = timer.table()
     finally:
-        mp.undo()
         timer.reset()
     return request.param, table, syncs, len(frames)
 
@@ -269,7 +266,6 @@ def test_kernel_entries_patched_by_module_attribute_are_still_called(monkeypatch
 
 
 def test_sorter_reaches_the_fused_search_through_its_module(monkeypatch):
-    monkeypatch.setenv("FT_FSD_FUSED_BEAM", "1")
     search = _Calls(bs.fused_beam_search)
     monkeypatch.setattr(bs, "fused_beam_search", search)
     _, cfg, frames = _frames("trackdrive")
@@ -303,11 +299,9 @@ def test_trackdrive_records_nothing_outside_recording():
     assert timer.table() == {}
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["B2", "the scan"])
-def test_b2_launches_are_counted_on_the_fused_path_only(fused, monkeypatch):
+def test_b2_launches_are_counted_on_the_fused_path_only(monkeypatch):
     """`sorting.b2.launches` counts the calls of B2 (its plain version on the
-    CPU), one a sorter call; the scan counts nothing."""
-    monkeypatch.setattr(sorting, "_use_fused_beam", lambda device, cfg: fused)
+    CPU), one a sorter call."""
     search = _Calls(bs.fused_beam_search)
     monkeypatch.setattr(bs, "fused_beam_search", search)
     _, cfg, frames = _frames("trackdrive")
@@ -319,8 +313,28 @@ def test_b2_launches_are_counted_on_the_fused_path_only(fused, monkeypatch):
     table = timer.table()
     timer.reset()
     assert table["stage.sorting.run"]["n"] == len(frames)
-    assert search.n == (len(frames) if fused else 0)
+    assert search.n == len(frames)
     assert table.get("sorting.b2.launches", 0) == search.n
+
+
+def test_a_search_off_the_cpu_at_a_shape_the_kernel_does_not_take_counts_no_launch(monkeypatch):
+    """Off the CPU (a meta tensor stands for the card's) the sorter reaches
+    the search at beam width 10, which the kernel does not take: the search
+    raises before anything runs, and `sorting.b2.launches` counts nothing."""
+    search = _Calls(bs.fused_beam_search)
+    monkeypatch.setattr(bs, "fused_beam_search", search)
+    cfg = default_config(n_cones=64, sorting=SortingConfig(beam_width=10))
+    frames = make_frame_batch(cfg, 2, seed=0, device="cpu")
+    meta = [t.to("meta") for t in (frames.cones, frames.mask, frames.position, frames.direction)]
+    timer.reset()
+    bs.reset_launch_count()
+    with timer.recording(), pytest.raises(bs.UnsupportedShape, match=r"\(10, 12, 5\)"):
+        sorting.run_cone_sorting(cfg, *meta)
+    table = timer.table()
+    timer.reset()
+    assert search.n == 1 and bs.launch_count == 0
+    assert table["stage.sorting.run"]["n"] == 1
+    assert "sorting.b2.launches" not in table
 
 
 def test_off_path_records_nothing_and_allocates_no_span():

@@ -6,12 +6,15 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds the hand-written kernels from ``csrc/`` (B1,
 the banded Cholesky solve with its bare and its fused, refined entry, B2,
-the fused beam search of the cone sorter, and FITPACK's parts 1 and 2, one
-launch a fit), holds each against its plain PyTorch version on the card at
+the fused beam search of the cone sorter, FITPACK's parts 1 and 2, one
+launch a fit, and the matching stage, one launch a call), holds each
+against its plain PyTorch version on the card at
 the shapes the main path gives it (every fit of a skidpad run, a trackdrive
 lap and the acceleration session, with its hairpin and its fits of 1,024
 sites, of a trackdrive and an acceleration batched step at B = 256 and of
-the initial path, through ``tests/part2_check.py``), and
+the initial path, through ``tests/part2_check.py``; every matching call
+of a trackdrive lap and of batched steps at S = 32 and 16, and edge lanes
+up to S = 64, through ``tests/matching_check.py``), and
 drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
 of bare solves it replaces), then the committed 300-frame session through
@@ -164,8 +167,11 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def count_syncs(fn) -> int:
-    """Host-device synchronisations ``fn`` makes (torch's sync debug mode)."""
+def sync_sites(fn) -> list[str]:
+    """The Python lines at which ``fn`` synchronises host and device (torch's
+    sync debug mode), one entry a synchronisation. The mode's own notice on
+    its first use in a process ("does not yet detect all synchronizing
+    operations") is no synchronisation."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -173,7 +179,12 @@ def count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing" in str(w.message) for w in caught)
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronisations ``fn`` makes."""
+    return len(sync_sites(fn))
 
 
 def reset_counts() -> None:
@@ -921,6 +932,95 @@ def phase_fitpack(dev) -> dict:
         "max_rel_err_lsq": total.worst_lsq,
         "lanes_near_tie": len(total.near_ties),
         "timed": "CUDA graph replay of 50 launches; one_by_one_ms and plain_ms launched one by one",
+        "shapes": rows,
+    }
+
+
+def phase_matching(dev) -> dict:
+    """The matching kernel against its plain version on the card, through
+    ``tests/matching_check.py``: every matching call of a trackdrive lap of
+    trackdrive.laps' traffic (B = 1), of a batched step at B = 256 (S = 32)
+    and at the dry run's budget (S = 16), and the edge lanes at S = 16, 32,
+    48 and 64, monotonic matching off and on: match indices, masks and
+    virtual masks equal on every lane, cones within ``COORD_TOL``. The drives
+    launch the kernel once a call (the program's counter too) and the
+    kernel's path makes no host sync. Then the kernel's time from a CUDA
+    graph and launched one by one at (B, S) = (1, 32) and (256, 32), against
+    the plain version's on the card."""
+    from ft_fsd_path_planning_torch.config import default_config
+    from ft_fsd_path_planning_torch.models import matching as tm
+    from ft_fsd_path_planning_torch.parallel import batch, dryrun, scenarios
+    from ft_fsd_path_planning_torch.utils import timer
+    from ft_fsd_path_planning_torch import MissionTypes, PathPlanner
+    from tests import matching_check as mc
+
+    planner = PathPlanner(MissionTypes.trackdrive, config=default_config(n_cones=256), device=dev)
+    lap = mc.lap_frames()
+
+    def step(cfg, b, seed):
+        frames = scenarios.make_frame_batch(cfg, b, seed=seed, device=dev)
+        state = batch.make_batch_state(cfg, b, dev)
+        return lambda: batch.batched_step(cfg, state, frames)
+
+    drives = {
+        f"a trackdrive.laps lap ({len(lap)} frames, B=1, S=32)": lambda: [planner.calculate_path_in_global_frame(*f) for f in lap],
+        f"a trackdrive batched_step B={BATCH} S=32": step(default_config(n_cones=N_CONES), BATCH, 1),
+        "a batched_step at the dry run's budget B=64 S=16": step(dryrun.tiny_config(), 64, 2),
+    }
+    captured, faults, worst = {}, [], 0.0
+    for label, run in drives.items():
+        launches0 = tm.launch_count
+        timer.reset()
+        with timer.recording():
+            calls = mc.capture(run)
+        table = timer.table()
+        timer.reset()
+        launched = tm.launch_count - launches0
+        log(f"matching calls of {label}: {len(calls)}, kernel launches {launched} (counter {table.get('matching.kernel.launches')})")
+        check(launched == len(calls) == table.get("matching.kernel.launches") == table["stage.matching.run"]["n"],
+              f"{label}: not one matching-kernel launch a matching call")
+        found = mc.Comparison()
+        for i, (cfg, inp) in enumerate(calls):
+            mc.compare(cfg, inp, found, f"{label} call {i}")
+        log(found.summary(label))
+        faults += found.faults
+        worst = max(worst, found.max_coord)
+        captured[label] = calls
+    for s in (16, 32, 48, 64):
+        _, inp = mc.edge_input(s, dev, full=True)
+        for label, cfg in mc.edge_configs(s).items():
+            found = mc.Comparison()
+            mc.compare(cfg, inp, found, label)
+            log(found.summary(f"the edge lanes {label}"))
+            faults += found.faults
+            worst = max(worst, found.max_coord)
+    check(not faults, f"the matching kernel disagrees with its plain version: {faults[:5]}")
+
+    rows = []
+    for label in list(drives)[:2]:
+        cfg, inp = captured[label][-1]
+        b, s = inp.left_cones.shape[:2]
+        kernel = lambda: tm.run_cone_matching_cuda(cfg, inp)  # noqa: E731
+        sites = sync_sites(lambda: tm.run_cone_matching(cfg, inp))
+        plain_sites = sync_sites(lambda: tm.run_cone_matching_plain(cfg, inp))
+        syncs, plain_syncs = len(sites), len(plain_sites)
+        log(f"syncs at (B, S) {(b, s)}: kernel's path {sites}, plain version {dict(Counter(plain_sites))}")
+        check(syncs == 0, f"the matching kernel's path synchronised at {sites} at (B, S) {(b, s)}")
+        ms, one_by_one = graph_ms(kernel, 100), cuda_ms(kernel, 100)
+        plain_ms = cuda_ms(lambda: tm.run_cone_matching_plain(cfg, inp), 10)
+        nbytes, flops = tm.kernel_bytes(b, s), tm.kernel_flops(b, s)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        log(f"matching kernel at (B, S) {(b, s)}: graph {ms!r} ms, one by one {one_by_one!r} ms, syncs {syncs}; "
+            f"plain version {plain_ms!r} ms, syncs {plain_syncs}; bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B, {flops} flop)")
+        rows.append({"b": b, "s": s, "ms": ms, "one_by_one_ms": one_by_one, "plain_ms": plain_ms, "plain_syncs": plain_syncs,
+                     "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return {
+        "name": "cone_matching",
+        "route": "cuda",
+        "source": "ft_fsd_path_planning_torch/csrc/cone_matching.cu",
+        "replaces": "none: the eager stage models/matching.py::run_cone_matching_plain (JAX models/matching.py, XLA ops)",
+        "max_abs_err_m": worst,
+        "timed": "CUDA graph replay of 100 launches; one_by_one_ms and plain_ms launched one by one",
         "shapes": rows,
     }
 
@@ -1845,6 +1945,7 @@ def main() -> int:
     b2 = phase_b2_vs_plain(cfg, replay_cfg, dev)
     b2_shapes = timed(phase_b2_shapes, cfg, dev)
     fit_kernel = timed(phase_fitpack, dev)
+    matching_kernel = timed(phase_matching, dev)
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
@@ -1901,7 +2002,7 @@ def main() -> int:
         check(row["launches"] > 0, f"{row['name']} was launched no time by the plan server's knob requests")
     b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
-    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [fit_kernel]}))
+    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [fit_kernel, matching_kernel]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

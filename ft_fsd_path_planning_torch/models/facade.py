@@ -21,7 +21,7 @@ import torch
 
 from ft_fsd_path_planning_torch.config import PlannerConfig, default_config
 from ft_fsd_path_planning_torch.device import resolve_device
-from ft_fsd_path_planning_torch.models import pathing, relocalization, sorting
+from ft_fsd_path_planning_torch.models import matching, pathing, relocalization, sorting
 from ft_fsd_path_planning_torch.models.planner import (
     GLOBAL_PATH_BUFFER_LEN,
     FrameInput,
@@ -154,8 +154,9 @@ class PathPlanner:
 
     Runs on ``device`` (default ``cuda``; raises without a GPU unless
     ``device="cpu"``). Off the CPU the sorter's search runs only as kernel
-    B2, so a sorting config whose shape the kernel does not take raises
-    ``beam_search.UnsupportedShape`` here, before any state is made.
+    B2 and matching only as its kernel, so a sorting config or a side length
+    that the kernels do not take raises ``beam_search.UnsupportedShape``
+    here, before any state is made.
     """
 
     def __init__(
@@ -171,6 +172,7 @@ class PathPlanner:
         if self.device.type != "cpu" and not self.cfg.has_relocalizer:
             s = self.cfg.sorting
             beam_search.require_kernel_shape(s.beam_width, s.max_length, s.max_n_neighbors)
+            matching.require_kernel_shape(self.cfg.shapes.side_len)
         self._state = make_initial_state(self.cfg, 1, self.device)
         self.global_path: Optional[FloatArray] = None
         # float64 relocalization refinement bookkeeping (see _refine_reloc_f64)

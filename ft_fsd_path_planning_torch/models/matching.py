@@ -5,22 +5,60 @@ Counterpart of `ft_fsd_path_planning_tpu/models/matching.py` (reference
 (B, M, N) masked score tensors and the sequential virtual-cone insertion a
 loop of branchless shift-inserts over a fixed buffer. Tie order follows the
 JAX package: stable sorts, lowest index first.
+
+:func:`run_cone_matching` chooses from the device alone: on the CPU the
+plain PyTorch version (:func:`run_cone_matching_plain`), on the card the
+hand-written kernel ``csrc/cone_matching.cu``, one launch for the whole
+stage (:func:`run_cone_matching_cuda`), which raises at a side length it
+does not take; a planner for the card raises already when it is made
+(:func:`require_kernel_shape`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ft_fsd_path_planning_torch.config import PlannerConfig
 from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
+from ft_fsd_path_planning_torch.ops import kernel_build
+from ft_fsd_path_planning_torch.ops.beam_search import UnsupportedShape
+from ft_fsd_path_planning_torch.utils import timer
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 from ft_fsd_path_planning_torch.utils.timer import spanned
 
 Tensor = torch.Tensor
+
+#: side lengths S the kernel takes: one warp a lane of the batch, one slot a
+#: thread up to 32 and two up to 64 (the plain version needs S >= 2)
+KERNEL_MIN_SIDE, KERNEL_MAX_SIDE = 2, 64
+
+#: launches of the CUDA kernel since the last reset (plain calls do not count)
+launch_count = 0
+
+
+def reset_launch_count() -> None:
+    global launch_count
+    launch_count = 0
+
+
+def kernel_supports(side_len: int) -> bool:
+    """Whether the CUDA kernel takes sides of ``side_len`` slots."""
+    return KERNEL_MIN_SIDE <= side_len <= KERNEL_MAX_SIDE
+
+
+def require_kernel_shape(side_len: int) -> None:
+    """Raise :class:`UnsupportedShape` unless the kernel takes ``side_len``."""
+    if not kernel_supports(side_len):
+        raise UnsupportedShape(
+            f"the matching kernel does not take side_len {side_len}: "
+            f"{KERNEL_MIN_SIDE} <= side_len <= {KERNEL_MAX_SIDE}"
+        )
 
 
 class MatchingInput(NamedTuple):
@@ -319,8 +357,7 @@ def _cones_for_other_side(
     return combined, combined_mask, is_virtual
 
 
-@spanned("stage.matching.run")
-def run_cone_matching(cfg: PlannerConfig, inp: MatchingInput) -> MatchingOutput:
+def run_cone_matching_plain(cfg: PlannerConfig, inp: MatchingInput) -> MatchingOutput:
     """Reference calculate_virtual_cones_for_both_sides (:479-588)."""
     n_l = torch.sum(inp.left_mask, dim=1)
     n_r = torch.sum(inp.right_mask, dim=1)
@@ -359,3 +396,108 @@ def run_cone_matching(cfg: PlannerConfig, inp: MatchingInput) -> MatchingOutput:
         left_to_right=torch.where(live, l2r, -1),
         right_to_left=torch.where(live, r2l, -1),
     )
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+class _Consts(ctypes.Structure):
+    """Mirror of ``Consts`` in csrc/cone_matching.cu: the constants of the
+    plain version as float32 operands on the card. A division by a Python
+    scalar runs there as a product with its float32 reciprocal."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "inv_major", "inv_minor", "max_angle", "track_width", "half_pi", "kink", "virt_eps", "eps",
+    )] + [("monotonic", ctypes.c_int)]
+
+
+def kernel_consts(cfg: PlannerConfig) -> _Consts:
+    m = cfg.matching
+    one = np.float32(1.0)
+    return _Consts(
+        float(one / np.float32(m.major_radius)), float(one / np.float32(m.minor_radius)),
+        m.max_search_angle, m.min_track_width, math.pi / 2, geo.deg2rad(85.0), 1e-4, 1e-12,
+        int(m.matches_should_be_monotonic),
+    )
+
+
+def kernel_bytes(b: int, s: int) -> int:
+    """Bytes the kernel must move: two sides of (x, y, mask) and the car's
+    position in; two sides of (x, y, mask, virtual flag, int64 match) out."""
+    return b * (2 * s * (8 + 1) + 8 + 2 * s * (8 + 1 + 1 + 8))
+
+
+def kernel_flops(b: int, s: int) -> int:
+    """Operations the kernel needs, counted from its arithmetic: four passes
+    over the S x S (cone, other cone) pairs at ~70 each (rotation, ellipse,
+    atan2, the opposition's acos, the squared distance), and the two merges'
+    S x S distances for the insertion order and S trips over S slots, ~25 a
+    pair."""
+    return b * (4 * s * s * 70 + 2 * s * s * 25)
+
+
+def _library() -> ctypes.CDLL:
+    lib = kernel_build.load("cone_matching")
+    fn = lib.cone_matching_f32
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Consts), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def run_cone_matching_cuda(cfg: PlannerConfig, inp: MatchingInput) -> MatchingOutput:
+    """Launch the CUDA kernel on the current stream (no synchronisation): one
+    warp a lane of the batch, the whole stage in one launch."""
+    global launch_count
+    if inp.left_cones.dim() != 3:
+        raise ValueError(f"left_cones must be (B, S, 2), got {tuple(inp.left_cones.shape)}")
+    b, s = inp.left_cones.shape[:2]
+    require_kernel_shape(s)
+    tensors = (inp.left_cones, inp.left_mask, inp.right_cones, inp.right_mask, inp.position)
+    want = ((b, s, 2), (b, s), (b, s, 2), (b, s), (b, 2))
+    names = ("left_cones", "left_mask", "right_cones", "right_mask", "position")
+    for name, tensor, shape in zip(names, tensors, want):
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(tensor.shape)}")
+    for name, tensor in zip(names, tensors):
+        dtype = torch.bool if name.endswith("mask") else torch.float32
+        if tensor.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the cones, masks and position must be contiguous")
+    dev = inp.left_cones.device
+    if any(t.device.type != "cuda" or t.device != dev for t in tensors):
+        raise ValueError("run_cone_matching_cuda takes CUDA tensors on one device")
+    cones = [torch.empty((b, s, 2), dtype=torch.float32, device=dev) for _ in range(2)]
+    masks = [torch.empty((b, s), dtype=torch.bool, device=dev) for _ in range(4)]
+    matches = [torch.empty((b, s), dtype=torch.int64, device=dev) for _ in range(2)]
+    out = MatchingOutput(
+        left_cones=cones[0], left_mask=masks[0], left_virtual_mask=masks[1],
+        right_cones=cones[1], right_mask=masks[2], right_virtual_mask=masks[3],
+        left_to_right=matches[0], right_to_left=matches[1],
+    )
+    if b == 0:
+        return out
+    consts = kernel_consts(cfg)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.cone_matching_f32(
+            *(t.data_ptr() for t in tensors), *(t.data_ptr() for t in out),
+            b, s, ctypes.byref(consts), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"cone_matching kernel launch failed: CUDA error {err}")
+    launch_count += 1
+    timer.count("matching.kernel.launches")  # one a launch, no sync
+    return out
+
+
+@spanned("stage.matching.run")
+def run_cone_matching(cfg: PlannerConfig, inp: MatchingInput) -> MatchingOutput:
+    """The matching stage: the plain version for CPU tensors, the kernel for
+    any other, which raises at a side length it does not take."""
+    if inp.left_cones.device.type == "cpu":
+        return run_cone_matching_plain(cfg, inp)
+    return run_cone_matching_cuda(cfg, MatchingInput(*(t.contiguous() for t in inp)))

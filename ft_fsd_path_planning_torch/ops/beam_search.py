@@ -55,8 +55,9 @@ KERNEL_MAX_NEIGHBORS = 7
 
 
 class UnsupportedShape(ValueError):
-    """A search shape (K, L, C) the kernel does not take, asked of a device
-    other than the CPU, where the search runs only as the kernel."""
+    """A shape a kernel does not take (B2's search shape (K, L, C), the
+    matching kernel's side length), asked of a device other than the CPU,
+    where the work runs only as the kernel."""
 
 
 def kernel_supports(k: int, l: int, c: int) -> bool:

@@ -34,7 +34,7 @@ from ft_fsd_path_planning_torch.models.planner import (
 from ft_fsd_path_planning_torch.ops import beam_search
 from ft_fsd_path_planning_torch.utils.cone_types import ConeTypes
 from ft_fsd_path_planning_torch.utils.mission_types import MissionTypes
-from ft_fsd_path_planning_torch.utils.timer import span, spanned
+from ft_fsd_path_planning_torch.utils.timer import count, span, spanned
 
 FloatArray = np.ndarray
 
@@ -347,58 +347,63 @@ class PathPlanner:
         colors) of the previous frame's, skip the beam-search sorter and
         run the step with the cached sorted order applied to the CURRENT
         cone positions. Unlike the reference's per-side cache this reuses
-        only when BOTH sides hit (the step runs both sides as one search)."""
+        only when BOTH sides hit (the step runs both sides as one search).
+        The lookup, up to the upload of the cached order on a hit, is the
+        span `stage.facade.sort_cache`; the counters `facade.sort_cache.lookups`
+        and `facade.sort_cache.hits` count the calls and the hits."""
         threshold = 0.1
-        if not self.cfg.sorting.use_unknown_cones:
-            mask = mask & (pts[:, 2] != ConeTypes.UNKNOWN)
-        flat = pts[mask]
+        count("facade.sort_cache.lookups")
+        with span("stage.facade.sort_cache"):
+            if not self.cfg.sorting.use_unknown_cones:
+                mask = mask & (pts[:, 2] != ConeTypes.UNKNOWN)
+            flat = pts[mask]
 
-        prefix, n_first = _start_cones(self.cfg, frame)
+            prefix, n_first = _start_cones(self.cfg, frame)
 
-        def start_rows(side: int) -> np.ndarray:
-            idx = prefix[side, : int(n_first[side])]
-            return pts[idx] if len(idx) else np.zeros((0, 3), np.float32)
+            def start_rows(side: int) -> np.ndarray:
+                idx = prefix[side, : int(n_first[side])]
+                return pts[idx] if len(idx) else np.zeros((0, 3), np.float32)
 
-        start_l, start_r = start_rows(0), start_rows(1)
+            start_l, start_r = start_rows(0), start_rows(1)
 
-        c = self._sort_cache
-        hit = (
-            c is not None
-            and _cone_arrays_are_similar(start_l, c["start_l"], threshold)
-            and _cone_arrays_are_similar(start_r, c["start_r"], threshold)
-            and _cone_arrays_are_similar(flat, c["flat"], threshold)
-        )
-        entry = {"flat": flat, "start_l": start_l, "start_r": start_r}
+            c = self._sort_cache
+            hit = (
+                c is not None
+                and _cone_arrays_are_similar(start_l, c["start_l"], threshold)
+                and _cone_arrays_are_similar(start_r, c["start_r"], threshold)
+                and _cone_arrays_are_similar(flat, c["flat"], threshold)
+            )
+            entry = {"flat": flat, "start_l": start_l, "start_r": start_r}
+            if hit:
+                self.sort_cache_hits += 1
+                count("facade.sort_cache.hits")
+                xy = flat[:, :2]
+                sl = np.array(c["sorted_l"])
+                sr = np.array(c["sorted_r"])
+                lm, rm = c["sorted_l_mask"], c["sorted_r_mask"]
+                sl[lm] = _remap_order(sl[lm], xy)
+                sr[rm] = _remap_order(sr[rm], xy)
+                # refresh the cache with THIS frame (keeping the cached sorted
+                # order applied to current positions): the reference rebuilds
+                # its ConeSortingCacheEntry from the fresh flattened cones every
+                # call (core_trace_sorter.py:189-196), so similarity is always
+                # frame-to-frame. Without this, slow cumulative SLAM drift
+                # (> 0.1 m total over a stable stretch) would force re-sorts
+                # the reference skips.
+                self._sort_cache = dict(
+                    entry,
+                    sorted_l=sl.astype(np.float32), sorted_l_mask=lm,
+                    sorted_r=sr.astype(np.float32), sorted_r_mask=rm,
+                )
+                dev = self.device
+                presorted = (
+                    torch.as_tensor(self._sort_cache["sorted_l"], device=dev)[None],
+                    torch.as_tensor(lm, device=dev)[None],
+                    torch.as_tensor(self._sort_cache["sorted_r"], device=dev)[None],
+                    torch.as_tensor(rm, device=dev)[None],
+                )
         if hit:
-            self.sort_cache_hits += 1
-            xy = flat[:, :2]
-            sl = np.array(c["sorted_l"])
-            sr = np.array(c["sorted_r"])
-            lm, rm = c["sorted_l_mask"], c["sorted_r_mask"]
-            sl[lm] = _remap_order(sl[lm], xy)
-            sr[rm] = _remap_order(sr[rm], xy)
-            # refresh the cache with THIS frame (keeping the cached sorted
-            # order applied to current positions): the reference rebuilds
-            # its ConeSortingCacheEntry from the fresh flattened cones every
-            # call (core_trace_sorter.py:189-196), so similarity is always
-            # frame-to-frame. Without this, slow cumulative SLAM drift
-            # (> 0.1 m total over a stable stretch) would force re-sorts
-            # the reference skips.
-            self._sort_cache = dict(
-                entry,
-                sorted_l=sl.astype(np.float32), sorted_l_mask=lm,
-                sorted_r=sr.astype(np.float32), sorted_r_mask=rm,
-            )
-            dev = self.device
-            return planner_step_presorted(
-                self.cfg,
-                self._state,
-                frame,
-                torch.as_tensor(self._sort_cache["sorted_l"], device=dev)[None],
-                torch.as_tensor(lm, device=dev)[None],
-                torch.as_tensor(self._sort_cache["sorted_r"], device=dev)[None],
-                torch.as_tensor(rm, device=dev)[None],
-            )
+            return planner_step_presorted(self.cfg, self._state, frame, *presorted)
 
         out, state = planner_step(self.cfg, self._state, frame)
         sl, lm, sr, rm = _fetch(

@@ -7,14 +7,17 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds the hand-written kernels from ``csrc/`` (B1,
 the banded Cholesky solve with its bare and its fused, refined entry, B2,
 the fused beam search of the cone sorter, FITPACK's parts 1 and 2, one
-launch a fit, and the matching stage, one launch a call), holds each
+launch a fit, the matching stage, one launch a call, and the path's
+parameterization tail, one launch a call), holds each
 against its plain PyTorch version on the card at
 the shapes the main path gives it (every fit of a skidpad run, a trackdrive
 lap and the acceleration session, with its hairpin and its fits of 1,024
 sites, of a trackdrive and an acceleration batched step at B = 256 and of
 the initial path, through ``tests/part2_check.py``; every matching call
 of a trackdrive lap and of batched steps at S = 32 and 16, and edge lanes
-up to S = 64, through ``tests/matching_check.py``), and
+up to S = 64, through ``tests/matching_check.py``; every parameterization of
+a trackdrive lap, a skidpad run, a batched step at B = 256 and the initial
+path, and edge lanes, through ``tests/param_check.py``), and
 drives the trackdrive main path: ``batched_step`` at B = 256 on perturbed
 corridors (with B1's fused entry and, for comparison, with the composition
 of bare solves it replaces), then the committed 300-frame session through
@@ -1025,6 +1028,79 @@ def phase_matching(dev) -> dict:
     }
 
 
+def phase_param(dev) -> dict:
+    """The parameterization kernel against its plain version on the card,
+    through ``tests/param_check.py``: every parameterization of a trackdrive
+    lap of trackdrive.laps' traffic (B = 1), of a skidpad run, of a
+    trackdrive batched step at B = 256 and of the initial path, and the edge
+    lanes at W = 31 and 15: n_pts, the horizon's indices, ok and every row
+    (u, x, y, the filtered curvature) equal bit for bit. The drives
+    launch the kernel once a call (the program's counter and span too) and
+    the kernel's path makes no host sync. Then the kernel's time from a CUDA
+    graph and launched one by one at (B, P) = (1, 192) and (256, 192),
+    against the plain version's on the card."""
+    from ft_fsd_path_planning_torch.models import pathing
+    from ft_fsd_path_planning_torch.utils import timer
+    from tests import param_check as pc
+
+    captured, faults = {}, []
+    for label, run in pc.drives(dev).items():
+        launches0 = pathing.launch_count
+        timer.reset()
+        with timer.recording():
+            calls = pc.capture(run)
+        table = timer.table()
+        timer.reset()
+        launched = pathing.launch_count - launches0
+        log(f"parameterizations of {label}: {len(calls)}, kernel launches {launched} "
+            f"(counter {table.get('pathing.param_kernel.launches')}, span {table['stage.pathing.param_tail']['n']})")
+        check(launched == len(calls) == table.get("pathing.param_kernel.launches") == table["stage.pathing.param_tail"]["n"],
+              f"{label}: not one parameterization-kernel launch a parameterization")
+        found = pc.Comparison()
+        for i, (cfg, fit, every, p_eval) in enumerate(calls):
+            pc.compare(cfg, fit, every, p_eval, found, f"{label} call {i}")
+        log(found.summary(label))
+        faults += found.faults
+        captured[label] = calls
+    names, fit, every = pc.edge_input(dev)
+    for label, cfg in pc.edge_configs().items():
+        found = pc.Comparison()
+        pc.compare(cfg, fit, every, 192, found, label)
+        log(found.summary(f"the edge lanes {label}"))
+        check(found.short_lanes == 7, f"the edge lanes {label}: {found.short_lanes} short lanes, not 7")
+        faults += found.faults
+    check(not faults, f"the parameterization kernel disagrees with its plain version: {faults[:5]}")
+
+    rows = []
+    lap, step = captured["a trackdrive.laps lap (150 frames, B=1)"], captured["a trackdrive batched_step B=256"]
+    for cfg, fit, every, p_eval in (lap[-1], max(step, key=lambda c: c[2].shape[0])):
+        b, w, h = every.shape[0], cfg.shapes.curvature_window, cfg.path.mpc_prediction_horizon
+        kernel = lambda: pathing.parameterize_tail_cuda(cfg, fit, every, p_eval)  # noqa: E731
+        plain = lambda: pathing.parameterize_tail_plain(cfg, fit, every, p_eval)  # noqa: E731
+        sites = sync_sites(lambda: pathing.parameterize_tail(cfg, fit, every, p_eval))
+        plain_sites = sync_sites(plain)
+        log(f"syncs at (B, P) {(b, p_eval)}: kernel's path {sites}, plain version {dict(Counter(plain_sites))}")
+        check(not sites, f"the parameterization kernel's path synchronised at {sites} at (B, P) {(b, p_eval)}")
+        ms, one_by_one, plain_ms = graph_ms(kernel, 100), cuda_ms(kernel, 100), cuda_ms(plain, 10)
+        nbytes, flops = pathing.param_kernel_bytes(b, h), pathing.param_kernel_flops(b, p_eval, w, h)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        log(f"parameterization kernel at (B, P) {(b, p_eval)}: graph {ms!r} ms, one by one {one_by_one!r} ms, syncs 0; "
+            f"plain version {plain_ms!r} ms, syncs {len(plain_sites)}; bound {max(bytes_ms, ops_ms)!r} ms "
+            f"({nbytes} B, {flops} flop)")
+        rows.append({"b": b, "p": p_eval, "ms": ms, "one_by_one_ms": one_by_one, "plain_ms": plain_ms,
+                     "plain_syncs": len(plain_sites), "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return {
+        "name": "path_parameterize",
+        "route": "cuda",
+        "source": "ft_fsd_path_planning_torch/csrc/path_parameterize.cu",
+        "replaces": "none: the eager tail models/pathing.py::parameterize_tail_plain (JAX models/pathing.py, XLA ops)",
+        "equal_bit_for_bit": True,
+        "timed": "CUDA graph replay of 100 launches; one_by_one_ms and plain_ms launched one by one",
+        "shapes": rows,
+    }
+
+
 def step_ms(step, reps: int) -> float:
     """Host-clock ms per call over ``reps`` calls, after the caller's warm-up."""
     torch.cuda.synchronize()
@@ -1946,6 +2022,7 @@ def main() -> int:
     b2_shapes = timed(phase_b2_shapes, cfg, dev)
     fit_kernel = timed(phase_fitpack, dev)
     matching_kernel = timed(phase_matching, dev)
+    param_kernel = timed(phase_param, dev)
     if kernels_only:
         log("kernels-only run: the main path was not driven, no result line")
         return 2
@@ -2002,7 +2079,7 @@ def main() -> int:
         check(row["launches"] > 0, f"{row['name']} was launched no time by the plan server's knob requests")
     b1_bare["launches_mission_frame"] = {k: v["b1_per_frame"] for k, v in mission_launches.items()}
     b1_bare["launches_bare_entry"] = step_launches["B1 bare entry"]
-    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [fit_kernel, matching_kernel]}))
+    log(json.dumps({"kernels": [kernel for kernel, _ in rows] + b2_shapes + [fit_kernel, matching_kernel, param_kernel]}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

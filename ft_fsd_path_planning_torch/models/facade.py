@@ -154,9 +154,10 @@ class PathPlanner:
 
     Runs on ``device`` (default ``cuda``; raises without a GPU unless
     ``device="cpu"``). Off the CPU the sorter's search runs only as kernel
-    B2 and matching only as its kernel, so a sorting config or a side length
-    that the kernels do not take raises ``beam_search.UnsupportedShape``
-    here, before any state is made.
+    B2, matching and the path's parameterization only as their kernels, so
+    a sorting config, a side length, a curvature window or a horizon that
+    the kernels do not take raises ``beam_search.UnsupportedShape`` here,
+    before any state is made.
     """
 
     def __init__(
@@ -169,6 +170,8 @@ class PathPlanner:
         self.mission = mission
         self.cfg = config or default_config(mission, experimental_performance_improvements)
         self.device = resolve_device(device)
+        if self.device.type != "cpu":
+            pathing.require_kernel_shape(self.cfg)
         if self.device.type != "cpu" and not self.cfg.has_relocalizer:
             s = self.cfg.sorting
             beam_search.require_kernel_shape(s.beam_width, s.max_length, s.max_n_neighbors)

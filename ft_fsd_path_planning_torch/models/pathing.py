@@ -9,10 +9,20 @@ from matched cone pairs, the previous path or, with
 Every ragged array becomes a fixed buffer plus a valid count, and the
 reference's fallback lattice becomes selects on ok-flags. Tensors carry a
 leading batch axis B, and every select is per lane.
+
+The parameterization's tail after its refit (sampling, curvature, filter,
+horizon) chooses from the device alone (:func:`parameterize_tail`): on the
+CPU the plain PyTorch version (:func:`parameterize_tail_plain`), on the card
+the hand-written kernel ``csrc/path_parameterize.cu``, one launch a call
+(:func:`parameterize_tail_cuda`), which raises at a shape it does not take;
+a planner for the card raises already when it is made
+(:func:`require_kernel_shape`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -23,8 +33,11 @@ from ft_fsd_path_planning_torch.config import PlannerConfig
 from ft_fsd_path_planning_torch.ops import fitpack as fpk
 from ft_fsd_path_planning_torch.ops import gatherless as gl
 from ft_fsd_path_planning_torch.ops import geometry as geo
+from ft_fsd_path_planning_torch.ops import kernel_build
 from ft_fsd_path_planning_torch.ops import spline as sp
+from ft_fsd_path_planning_torch.ops.beam_search import UnsupportedShape
 from ft_fsd_path_planning_torch.ops.curvature import path_curvature, uniform_filter1d_nearest
+from ft_fsd_path_planning_torch.utils import timer
 from ft_fsd_path_planning_torch.utils.timer import spanned
 
 Tensor = torch.Tensor
@@ -321,6 +334,180 @@ def _trim_to_mpc_length(
 # ---------------------------------------------------------------------------
 
 
+class ParamTail(NamedTuple):
+    """The parameterization tail's results."""
+
+    out: Tensor  # (B, H, 4) [u, x, y, filtered curvature] at the horizon's samples
+    ok: Tensor  # (B,) bool: at least H samples and the refit ok
+    n_pts: Tensor  # (B,) int64 samples within the refit spline
+    indices: Tensor  # (B, H) int32 the horizon's sample indices
+
+
+def parameterize_tail_plain(
+    cfg: PlannerConfig, fit: fpk.FpSpline, predict_every: Tensor, p_eval: int
+) -> ParamTail:
+    """Sample the refit spline every ``predict_every`` (B,) into ``p_eval``
+    slots, take the windowed circle-fit curvature and its box filter, and
+    pick the MPC horizon's rows."""
+    horizon = cfg.path.mpc_prediction_horizon
+    dev = predict_every.device
+    pts, u_grid, pts_valid = fpk.fitpack_eval_every(fit, predict_every, p_eval)
+    n_pts = torch.sum(pts_valid, dim=1)
+
+    window = torch.clamp(n_pts // 5, max=30)
+    window = window + (window % 2 == 0).to(window.dtype)
+    curv = path_curvature(
+        pts,
+        n_pts,
+        window,
+        cfg.shapes.curvature_window,
+        cfg.path.curvature_radius_min,
+        cfg.path.curvature_radius_max,
+    )
+    filt_size = torch.clamp(window // 2, min=2)
+    curv_f = uniform_filter1d_nearest(curv, n_pts, filt_size, cfg.shapes.curvature_window)
+
+    # linspace(0, n-1, horizon) int truncation (path_parameterization.py:277-282)
+    lin = torch.arange(horizon, dtype=torch.float32, device=dev)[None, :] * (
+        torch.clamp(n_pts - 1, min=0).to(torch.float32)[:, None] / (horizon - 1)
+    )
+    indices = torch.clamp(lin.to(torch.int32), 0, p_eval - 1)
+    ok = (n_pts >= horizon) & fit.ok  # duplicates -> ValueError -> fallback
+
+    pts_h = gl.take_rows(pts, indices)  # (B, H, 2)
+    out = torch.stack(
+        [
+            gl.take_vec(u_grid, indices),
+            pts_h[..., 0],
+            pts_h[..., 1],
+            gl.take_vec(curv_f, indices),
+        ],
+        dim=2,
+    )
+    return ParamTail(out=out, ok=ok, n_pts=n_pts, indices=indices)
+
+
+#: the most samples, the widest curvature window the kernel takes
+KERNEL_MAX_SAMPLES, KERNEL_MAX_WINDOW = 256, 63
+#: ops/geometry.py::circle_fit's Newton trips, as path_curvature calls it
+_CIRCLE_FIT_MAX_ITER = 32
+#: launches of the CUDA kernel since the last reset (plain calls do not count)
+launch_count = 0
+
+
+def reset_launch_count() -> None:
+    global launch_count
+    launch_count = 0
+
+
+def tail_samples(cfg: PlannerConfig) -> int:
+    """The sample slots of the tail (``p_eval``) for the planner's dense
+    buffer: the refit eval emits <= horizon*3 + 1 samples, so 192 slots
+    cover it."""
+    return min(192, cfg.shapes.dense_samples)
+
+
+def kernel_supports(p: int, w: int, h: int) -> bool:
+    """Whether the CUDA kernel takes p sample slots, a curvature window of w
+    and a horizon of h rows."""
+    return 1 <= p <= KERNEL_MAX_SAMPLES and 1 <= w <= KERNEL_MAX_WINDOW and w % 2 == 1 and 2 <= h <= p
+
+
+def require_kernel_shape(cfg: PlannerConfig, p: int | None = None) -> None:
+    """Raise :class:`UnsupportedShape` unless the kernel takes the tail's
+    shape under ``cfg`` (at ``p`` sample slots, default the planner's)."""
+    p = tail_samples(cfg) if p is None else p
+    w, h = cfg.shapes.curvature_window, cfg.path.mpc_prediction_horizon
+    if not kernel_supports(p, w, h):
+        raise UnsupportedShape(
+            f"the parameterization kernel does not take p_eval {p}, curvature_window {w}, "
+            f"mpc_prediction_horizon {h}: 1 <= p_eval <= {KERNEL_MAX_SAMPLES}, an odd window "
+            f"<= {KERNEL_MAX_WINDOW}, 2 <= horizon <= p_eval"
+        )
+
+
+def param_kernel_bytes(b: int, h: int) -> int:
+    """Bytes the kernel must move: a fit (24 knots and their count, 28 x 2
+    coefficients, the chord length, ok) and predict_every in; H rows of four
+    floats, ok, the count and H indices out."""
+    return b * ((fpk.MAX_INT + 2 * fpk.NC + 2) * 4 + 4 + 1 + h * 16 + 1 + 8 + h * 4)
+
+
+def param_kernel_flops(b: int, p: int, w: int, h: int) -> int:
+    """Operations the kernel needs, counted from its arithmetic: a sample's
+    span, basis and sum (~60), the mean and six moments over its window's w
+    slots (~27 a slot), 32 Newton trips of ~15 at most and the circle's
+    centre (~30); a row's filter over its slots (~2 a slot)."""
+    return b * (p * (60 + 27 * w + 32 * 15 + 30) + h * 2 * w)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = kernel_build.load("path_parameterize")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.parameterize_tail_f32.argtypes = [ptr] * 6 + [i32] * 5 + [f32] * 3 + [ptr] * 5
+    lib.parameterize_tail_f32.restype = ctypes.c_int
+    return lib
+
+
+def parameterize_tail_cuda(
+    cfg: PlannerConfig, fit: fpk.FpSpline, predict_every: Tensor, p_eval: int
+) -> ParamTail:
+    """Launch the CUDA kernel on the current stream (no synchronisation): one
+    block a lane, one thread a sample, the whole tail in one launch. The
+    same arguments and results as :func:`parameterize_tail_plain`; raises on
+    what the kernel does not take before it launches."""
+    global launch_count
+    require_kernel_shape(cfg, p_eval)
+    b = predict_every.shape[0]
+    f32 = {"t_int": (fit.t_int, (b, fpk.MAX_INT)), "coef": (fit.coef, (b, fpk.NC, 2)),
+           "u_max": (fit.u_max, (b,)), "predict_every": (predict_every, (b,))}
+    typed = dict(f32, n_int=(fit.n_int, (b,)), ok=(fit.ok, (b,)))
+    for name, (tensor, shape) in typed.items():
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(tensor.shape)}")
+        want = torch.float32 if name in f32 else torch.int32 if name == "n_int" else torch.bool
+        if tensor.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {tensor.dtype}")
+    dev = predict_every.device
+    if any(t.device.type != "cuda" or t.device != dev for t, _ in typed.values()):
+        raise ValueError("parameterize_tail_cuda takes CUDA tensors on one device")
+    h = cfg.path.mpc_prediction_horizon
+    out = ParamTail(
+        out=torch.empty((b, h, 4), dtype=torch.float32, device=dev),
+        ok=torch.empty((b,), dtype=torch.bool, device=dev),
+        n_pts=torch.empty((b,), dtype=torch.int64, device=dev),
+        indices=torch.empty((b, h), dtype=torch.int32, device=dev),
+    )
+    if b == 0:
+        return out
+    args = [t.contiguous() for t in (fit.t_int, fit.n_int, fit.coef, fit.u_max, fit.ok, predict_every)]
+    inv_h1 = float(np.float32(1.0) / np.float32(h - 1))  # a division by a Python int on the card
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.parameterize_tail_f32(
+            *(t.data_ptr() for t in args), b, p_eval, cfg.shapes.curvature_window, h, _CIRCLE_FIT_MAX_ITER,
+            cfg.path.curvature_radius_min, cfg.path.curvature_radius_max, inv_h1,
+            *(t.data_ptr() for t in out), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"parameterize_tail kernel launch failed: CUDA error {err}")
+    launch_count += 1
+    timer.count("pathing.param_kernel.launches")  # one a launch, no sync
+    return out
+
+
+@spanned("stage.pathing.param_tail")
+def parameterize_tail(
+    cfg: PlannerConfig, fit: fpk.FpSpline, predict_every: Tensor, p_eval: int
+) -> ParamTail:
+    """The parameterization tail: the plain version for CPU tensors, the
+    kernel for any other, which raises at a shape it does not take."""
+    if predict_every.device.type == "cpu":
+        return parameterize_tail_plain(cfg, fit, predict_every, p_eval)
+    return parameterize_tail_cuda(cfg, fit, predict_every, p_eval)
+
+
 def _parameterize_path(
     cfg: PlannerConfig, path: Tensor, n_valid: Tensor
 ) -> tuple[Tensor, Tensor, Tensor]:
@@ -355,40 +542,8 @@ def _parameterize_path(
     skipped = gl.take_rows(path, take)
 
     fit = fpk.fitpack_fit(skipped, skipped_valid, cfg.path.refit_smoothing)
-    pts, u_grid, pts_valid = fpk.fitpack_eval_every(fit, predict_every, p_eval)
-    n_pts = torch.sum(pts_valid, dim=1)
-
-    window = torch.clamp(n_pts // 5, max=30)
-    window = window + (window % 2 == 0).to(window.dtype)
-    curv = path_curvature(
-        pts,
-        n_pts,
-        window,
-        cfg.shapes.curvature_window,
-        cfg.path.curvature_radius_min,
-        cfg.path.curvature_radius_max,
-    )
-    filt_size = torch.clamp(window // 2, min=2)
-    curv_f = uniform_filter1d_nearest(curv, n_pts, filt_size, cfg.shapes.curvature_window)
-
-    # linspace(0, n-1, horizon) int truncation (path_parameterization.py:277-282)
-    lin = torch.arange(horizon, dtype=torch.float32, device=dev)[None, :] * (
-        torch.clamp(n_pts - 1, min=0).to(torch.float32)[:, None] / (horizon - 1)
-    )
-    indices = torch.clamp(lin.to(torch.int32), 0, p_eval - 1)
-    ok = (n_pts >= horizon) & fit.ok  # duplicates -> ValueError -> fallback
-
-    pts_h = gl.take_rows(pts, indices)  # (B, H, 2)
-    out = torch.stack(
-        [
-            gl.take_vec(u_grid, indices),
-            pts_h[..., 0],
-            pts_h[..., 1],
-            gl.take_vec(curv_f, indices),
-        ],
-        dim=2,
-    )
-    return out, ok, fit.budget_hit
+    tail = parameterize_tail(cfg, fit, predict_every, p_eval)
+    return tail.out, tail.ok, fit.budget_hit
 
 
 def parameterize_trace(cfg: PlannerConfig, points: Tensor, mask: Tensor) -> Tensor:

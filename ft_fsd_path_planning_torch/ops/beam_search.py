@@ -56,8 +56,9 @@ KERNEL_MAX_NEIGHBORS = 7
 
 class UnsupportedShape(ValueError):
     """A shape a kernel does not take (B2's search shape (K, L, C), the
-    matching kernel's side length), asked of a device other than the CPU,
-    where the work runs only as the kernel."""
+    matching kernel's side length, the parameterization kernel's window and
+    horizon), asked of a device other than the CPU, where the work runs only
+    as the kernel."""
 
 
 def kernel_supports(k: int, l: int, c: int) -> bool:

@@ -26,11 +26,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: flags a source adds to NVCC_FLAGS. beam_search.cu, fitpack_part2.cu and
-#: cone_matching.cu are held against plain versions, which cannot fuse a
-#: product and a sum
+#: flags a source adds to NVCC_FLAGS. beam_search.cu, fitpack_part2.cu,
+#: cone_matching.cu and path_parameterize.cu are held against plain
+#: versions, which cannot fuse a product and a sum
 EXTRA_FLAGS = {
     "beam_search": ("-fmad=false",), "fitpack_part2": ("-fmad=false",), "cone_matching": ("-fmad=false",),
+    "path_parameterize": ("-fmad=false",),
 }
 #: the csrc/ headers a source includes, hashed into its library's key
 HEADERS = {"banded_cholesky": ("banded_cholesky.cuh",), "fitpack_part2": ("banded_cholesky.cuh",)}

@@ -38,9 +38,10 @@ FACADE = ("stage.facade.call", "stage.facade.step", "stage.facade.upload", "stag
 FITPACK = ("stage.fitpack.fit", "stage.fitpack.part1", "stage.fitpack.insert", "stage.fitpack.part2",
            "stage.fitpack.root_rati")
 #: the spans each mission's frames open, and its counters
+PATHING = ("stage.pathing.run", "stage.pathing.param_tail")
 SPANS = {
-    "skidpad": FACADE + ("stage.facade.refine_f64", "stage.reloc.attempt", "stage.pathing.run") + FITPACK,
-    "trackdrive": FACADE + ("stage.sorting.run", "stage.matching.run", "stage.pathing.run") + FITPACK,
+    "skidpad": FACADE + ("stage.facade.refine_f64", "stage.reloc.attempt") + PATHING + FITPACK,
+    "trackdrive": FACADE + ("stage.sorting.run", "stage.matching.run") + PATHING + FITPACK,
 }
 TRIPS = {f"fitpack.trips.{loop}" for loop in ("part1", "insert", "part2", "root_rati")}
 #: each mission's counters (the recorded frames run B2's plain version)
@@ -56,6 +57,7 @@ NESTED = [
         ("stage.reloc.attempt", "stage.facade.step") if mission == "skidpad"
         else ("stage.facade.upload", "stage.facade.call"),
         ("stage.fitpack.fit", "stage.pathing.run"),
+        ("stage.pathing.param_tail", "stage.pathing.run"),
         ("stage.fitpack.part1", "stage.fitpack.fit"),
         ("stage.fitpack.root_rati", "stage.fitpack.part2"),
     ]
@@ -141,6 +143,7 @@ def test_fitpack_trips_add_up_to_loop_syncs(recorded):
 
 SPANNED = [
     (pathing.run_path_calculation, "stage.pathing.run"),
+    (pathing.parameterize_tail, "stage.pathing.param_tail"),
     (relocalization.attempt_relocalization, "stage.reloc.attempt"),
     (facade.PathPlanner.calculate_path_in_global_frame, "stage.facade.call"),
     (facade.PathPlanner._refine_reloc_f64, "stage.facade.refine_f64"),
